@@ -90,15 +90,30 @@ def policy_from_numpy(t0, dt, values, interp=spline_lib.Interpolation.ZERO,
 
 def data_from_numpy(m: model_lib.Model, qpos=None, qvel=None, time=None,
                     mocap_pos=None, mocap_quat=None, userdata=None,
-                    device=None) -> model_lib.Data:
+                    act=None, ctrl=None, qfrc_applied=None,
+                    xfrc_applied=None, device=None) -> model_lib.Data:
   """Data on the model's device with the given fields overridden."""
   d = model_lib.make_data(m, device=device)
   dev = d.qpos.device
   given = dict(qpos=qpos, qvel=qvel, time=time, mocap_pos=mocap_pos,
-               mocap_quat=mocap_quat, userdata=userdata)
+               mocap_quat=mocap_quat, userdata=userdata, act=act, ctrl=ctrl,
+               qfrc_applied=qfrc_applied, xfrc_applied=xfrc_applied)
   kw = {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev)
         for k, v in given.items() if v is not None}
   return d.replace(**kw)
+
+
+def ilqg_policy_from_numpy(states, actions, times, gains, reg, reg_rate,
+                           device="cuda"):
+  """The port's ILQGPolicy from the leaves of a JAX ILQGPolicy given as
+  numpy arrays."""
+  from mujoco_mpc_tpu_torch.planners import ilqg as ilqg_lib
+
+  def dev(x):
+    return torch.as_tensor(np.array(x, dtype=np.float32)).to(device)
+  return ilqg_lib.ILQGPolicy(
+      states=dev(states), actions=dev(actions), times=dev(times),
+      gains=dev(gains), reg=dev(reg), reg_rate=dev(reg_rate))
 
 
 # ---- compiled-task records ------------------------------------------------

@@ -75,6 +75,39 @@ class CostSpec:
     risked = (torch.exp(risk_safe * c) - 1.0) / risk_safe
     return torch.where(neutral, c, risked)
 
+  def cost_grad_hess(self, residual: torch.Tensor):
+    """Gauss-Newton expansion wrt the residual: per-term (grad, hess)
+    assembled into the full (..., num_residual) gradient and the
+    block-diagonal (..., num_residual, num_residual) Hessian, with
+    risk-sensitive scaling when risk != 0 (for l_r = (e^{R c}-1)/R:
+    grad_r = e^{R c} grad, hess_r = e^{R c}(hess + R grad grad^T))."""
+    nr = self.num_residual
+    batch = residual.shape[:-1]
+    grads, rows = [], []
+    off = 0
+    for k in range(self.num_term):
+      dim = self.dims[k]
+      x = residual[..., off:off + dim]
+      g = norms.norm_grad(x, self.norm_types[k], self.norm_params[k])
+      h = norms.norm_hess_diag(x, self.norm_types[k], self.norm_params[k])
+      grads.append(self.weights[k] * g)
+      left = residual.new_zeros(batch + (dim, off))
+      right = residual.new_zeros(batch + (dim, nr - off - dim))
+      rows.append(torch.cat([left, self.weights[k] * h, right], dim=-1))
+      off += dim
+    grad = torch.cat(grads, dim=-1)
+    hess = torch.cat(rows, dim=-2)
+
+    neutral = torch.abs(self.risk) < RISK_NEUTRAL_TOL
+    risk_safe = torch.where(neutral, torch.ones_like(self.risk), self.risk)
+    c = torch.sum(self.cost_terms(residual), dim=-1)
+    scale = torch.exp(risk_safe * c)
+    grad_r = scale[..., None] * grad
+    hess_r = scale[..., None, None] * (
+        hess + risk_safe * grad[..., :, None] * grad[..., None, :])
+    return (torch.where(neutral, grad, grad_r),
+            torch.where(neutral, hess, hess_r))
+
   def set_weight(self, name: str, value) -> "CostSpec":
     idx = self.term_names.index(name)
     weights = self.weights.clone()

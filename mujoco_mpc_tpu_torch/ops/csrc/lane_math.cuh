@@ -44,6 +44,25 @@ __device__ __forceinline__ void quat_rot(const float* q, const float* v,
   o[2] = vv[2] + (uv[2] * w + uuv[2]) * 2.0f;
 }
 
+// 3D tangent difference of two quaternions: the velocity v with
+// qb * exp(v/2) = qa (mju_subQuat). Counterpart of lanemath.quat_sub_tangent.
+__device__ __forceinline__ void quat_sub_tangent(const float* qa,
+                                                 const float* qb, float* o) {
+  const float aw = qa[0], ax = qa[1], ay = qa[2], az = qa[3];
+  const float bw = qb[0], bx = qb[1], by = qb[2], bz = qb[3];
+  float w = bw * aw + bx * ax + by * ay + bz * az;
+  float x = bw * ax - bx * aw - by * az + bz * ay;
+  float y = bw * ay + bx * az - by * aw - bz * ax;
+  float z = bw * az - bx * ay + by * ax - bz * aw;
+  const float inv =
+      1.0f / sqrtf(fmaxf(w * w + x * x + y * y + z * z, 1e-24f));
+  const float sign = w < 0.0f ? -inv : inv;   // shortest arc, unit norm
+  w *= sign; x *= sign; y *= sign; z *= sign;
+  const float sin_half = sqrtf(fmaxf(x * x + y * y + z * z, 0.0f));
+  const float s = 2.0f * atan2f(sin_half, w) / fmaxf(sin_half, 1e-12f);
+  o[0] = x * s; o[1] = y * s; o[2] = z * s;
+}
+
 // Spatial inertia (Ixx Ixy Ixz Iyy Iyz Izz hx hy hz mass, about the
 // reference point) times motion (angular 0..2, linear 3..5) -> force
 // (torque 0..2, force 3..5).

@@ -4,7 +4,8 @@
 // Replaces the TPU (Pallas) kernel mujoco_mpc_tpu/ops/step_lane.py:
 // build_rollout_kernel. Per horizon step and candidate: forward kinematics,
 // com quantities, composite-inertia mass matrix, RNE bias, passive forces,
-// joint-transmission actuation, the task residual on the pre-step state,
+// (springs, dampers, the inertia-box fluid model), joint-transmission
+// actuation, the task residual on the pre-step state,
 // joint-limit rows and plane-sphere contacts (pyramidal rows, condim-1 rows
 // or elliptic cone blocks), Newton on the acceleration with a safeguarded
 // exact line search, implicit-damping Euler with quaternion integration.
@@ -26,6 +27,14 @@
 // instruction cache is the budget for that: the loops over contacts stay
 // rolled (unrolling them was measured slower). The nv x nv matrices are
 // indexed by loop variables and live in thread-local memory.
+//
+// Control (LR_CTRL): 0 = zero-order-hold spline nodes, one column of
+// `values` (P*NU, K) per candidate; 1 = the feedback law of iLQG's line
+// searches, u = clip(u_nom[t] + alpha k[t] + scale K[t] dx, ctrlrange), with
+// alpha = values[0], scale = values[1] per candidate, dx the tangent
+// difference to the nominal state, and `table` (H, STRIDE) the per-step
+// blocks [u_nom, k, K row-major, x_nom] shared by all candidates: every
+// thread of a warp reads the same address, through the read-only path.
 //
 // MODE 0: out0 = states (H, NQ+NV+NR, K), pre-step state (+ residual rows)
 // MODE 1: out0 = residual rows (H, NR, K), out1 = final state (NQ+NV, K)
@@ -58,6 +67,8 @@
     !defined(LR_BLOCK) || \
     !defined(LR_EROWS) || \
     !defined(LR_PROFILE) || \
+    !defined(LR_CTRL) || \
+    !defined(LR_FLUID) || \
     !defined(RESIDUAL_HEADER)
 #error "lane_rollout.cu needs its compile-time dimensions (see ops/step_lane.py)"
 #endif
@@ -83,11 +94,15 @@
 #define BLOCK LR_BLOCK
 #define EROWS LR_EROWS
 #define PROFILE LR_PROFILE
+#define CTRL LR_CTRL
+#define FLUID LR_FLUID
 
 #define D1(n) ((n) > 0 ? (n) : 1)
 #define NLIM (2 * (NLIMJ))
 #define NAUXK ((NAUX) + 2 * (NTERM))
 #define HAS_ROWS ((NLIMJ) > 0 || (NCON) > 0)
+#define NDX (2 * (NV))
+#define STRIDE (2 * (NU) + (NU) * NDX + (NQ) + (NV))
 
 #define JNT_FREE 0
 #define JNT_SLIDE 2
@@ -141,6 +156,8 @@ struct TablesHead {
   int econ_con[D1(NECON)];
   int term_type[D1(NTERM)];
   int term_dim[D1(NTERM)];
+  int body_dofmask[NBODY][D1(NV)];  // dof moves the body
+  int fluid_on[NBODY];              // body takes fluid forces
   float timestep[1];
   float gravity[3];
   float body_pos[NBODY][3];
@@ -181,6 +198,10 @@ struct TablesHead {
   float con_scales[D1(NCON)][5];
   float con_scales2[D1(NCON)][5];
   float prow_smu[D1(NPROW)];       // sign * friction of the row's axis
+  float wind[3];
+  float fluid_visc[NBODY][2];      // viscous torque, force coefficients
+  float fluid_dens_f[NBODY][3];    // quadratic-drag force, per local axis
+  float fluid_dens_t[NBODY][3];    // quadratic-drag torque, per local axis
 };
 
 // impedance constant block: d0 dmax width mid power a_c b_c b_coef k_coef
@@ -346,6 +367,7 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
                     const float* __restrict__ qvel0,
                     const float* __restrict__ values,
                     const float* __restrict__ aux_in,
+                    const float* __restrict__ table,
                     float* __restrict__ out0, float* __restrict__ out1,
                     int K) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -367,14 +389,46 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
     for (int i = 0; i < NAUXK; ++i) aux[i] = aux_in[i * K + k];
   }
   for (int i = 0; i < NTERM; ++i) sums[i] = 0.0f;
+#if CTRL
+  const float fb_alpha = values[k], fb_scale = values[K + k];
+#endif
 
 #pragma unroll 1
   for (int t = 0; t < H; ++t) {
+#if CTRL
+    {
+      // feedback law on the tangent difference to the nominal state
+      const float* row = table + (size_t)t * STRIDE;
+      const float* xn = row + 2 * NU + NU * NDX;
+      float dx[D1(NDX)];
+      for (int j = 0; j < NJNT; ++j) {
+        int qa = tb.jnt_qposadr[j], da = tb.jnt_dofadr[j];
+        if (tb.jnt_type[j] == JNT_FREE) {
+          for (int a = 0; a < 3; ++a) dx[da + a] = qpos[qa + a] - __ldg(xn + qa + a);
+          const float qn[4] = {__ldg(xn + qa + 3), __ldg(xn + qa + 4),
+                               __ldg(xn + qa + 5), __ldg(xn + qa + 6)};
+          quat_sub_tangent(qpos + qa + 3, qn, dx + da + 3);
+        } else {
+          dx[da] = qpos[qa] - __ldg(xn + qa);
+        }
+      }
+      for (int i = 0; i < NV; ++i) dx[NV + i] = qvel[i] - __ldg(xn + NQ + i);
+      for (int u = 0; u < NU; ++u) {
+        const float cff = __ldg(row + u) + fb_alpha * __ldg(row + NU + u);
+        const float* g = row + 2 * NU + u * NDX;
+        float acc = __ldg(g) * dx[0];
+        for (int i = 1; i < NDX; ++i) acc += __ldg(g + i) * dx[i];
+        ctrl[u] = clampf(cff + fb_scale * acc, tb.act_ctrlrange[u][0],
+                         tb.act_ctrlrange[u][1]);
+      }
+    }
+#else
     {
       int node = (t * P) / ((H - 1) > 1 ? (H - 1) : 1);
       node = node < P - 1 ? node : P - 1;
       for (int u = 0; u < NU; ++u) ctrl[u] = values[(node * NU + u) * K + k];
     }
+#endif
     TICK(0);
     // ---- forward kinematics ----
     float xpos[NBODY][3], xquat[NBODY][4];
@@ -630,6 +684,39 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
         qfrc[dadr] -= tb.jnt_stiffness[j] * (qpos[qadr] - tb.qpos_spring[qadr]);
       }
       for (int i = 0; i < NV; ++i) qfrc[i] -= tb.dof_damping[i] * qvel[i];
+#if FLUID
+      // inertia-box fluid model: viscous and quadratic drag in each body's
+      // inertial frame, applied at its com (coefficients from the host)
+#pragma unroll 1
+      for (int i = 1; i < NBODY; ++i) {
+        if (!tb.fluid_on[i]) continue;
+        const float* rf = subtree_com[tb.body_rootid[i]];
+        const float off[3] = {xipos[i][0] - rf[0], xipos[i][1] - rf[1],
+                              xipos[i][2] - rf[2]};
+        float v_w[3], qw[4], la[3], ll[3], tq[3], fr[3], f_w[3], t_ref[3];
+        cross3(cvel[i], off, v_w);
+        for (int a = 0; a < 3; ++a)
+          v_w[a] = (cvel[i][3 + a] + v_w[a]) - tb.wind[a];
+        quat_mul(xquat[i], tb.body_iquat[i], qw);
+        const float qc[4] = {qw[0], -qw[1], -qw[2], -qw[3]};
+        quat_rot(qc, cvel[i], la);
+        quat_rot(qc, v_w, ll);
+        for (int a = 0; a < 3; ++a) {
+          tq[a] = -tb.fluid_visc[i][0] * la[a] -
+                  tb.fluid_dens_t[i][a] * fabsf(la[a]) * la[a];
+          fr[a] = -tb.fluid_visc[i][1] * ll[a] -
+                  tb.fluid_dens_f[i][a] * fabsf(ll[a]) * ll[a];
+        }
+        quat_rot(qw, fr, f_w);
+        quat_rot(qw, tq, t_ref);
+        float oxf[3];
+        cross3(off, f_w, oxf);
+        for (int a = 0; a < 3; ++a) t_ref[a] += oxf[a];
+        for (int d = 0; d < NV; ++d)
+          if (tb.body_dofmask[i][d])
+            qfrc[d] += dot3(cdof[d], t_ref) + dot3(cdof[d] + 3, f_w);
+      }
+#endif
       for (int u = 0; u < NU; ++u) {
         float uin = ctrl[u];
         if (tb.act_ctrllimited[u])
@@ -1107,9 +1194,10 @@ extern "C" int lane_set_tables(const void* src, int nbytes, void* stream) {
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int lane_rollout(const float* qpos0, const float* qvel0,
                             const float* values, const float* aux,
-                            float* out0, float* out1, int K, void* stream) {
+                            const float* table, float* out0, float* out1,
+                            int K, void* stream) {
   const int grid = (K + BLOCK - 1) / BLOCK;
   lane_rollout_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      qpos0, qvel0, values, aux, out0, out1, K);
+      qpos0, qvel0, values, aux, table, out0, out1, K);
   return (int)cudaGetLastError();
 }

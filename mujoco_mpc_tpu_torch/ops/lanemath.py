@@ -65,6 +65,27 @@ def axis_angle_quat(axis: Vec3, angle) -> Quat:
   return (torch.cos(half), axis[0] * s, axis[1] * s, axis[2] * s)
 
 
+def quat_sub_tangent(qa: Quat, qb: Quat) -> Vec3:
+  """3D tangent difference of component-form quaternions: the velocity v
+  with qb * exp(v/2) = qa (mju_subQuat semantics, matching
+  physics.math.quat_sub). qa / qb are 4-tuples of (..., K) tensors or
+  scalars (broadcast-compatible)."""
+  aw, ax, ay, az = qa
+  bw, bx, by, bz = qb
+  # qd = conj(qb) * qa
+  w = bw * aw + bx * ax + by * ay + bz * az
+  x = bw * ax - bx * aw - by * az + bz * ay
+  y = bw * ay + bx * az - by * aw - bz * ax
+  z = bw * az - bx * ay + by * ax - bz * aw
+  inv = torch.rsqrt(torch.clamp(w * w + x * x + y * y + z * z, min=1e-24))
+  sign = torch.where(w < 0, -inv, inv)      # shortest arc, unit norm
+  w, x, y, z = w * sign, x * sign, y * sign, z * sign
+  sin_half = torch.sqrt(torch.clamp(x * x + y * y + z * z, min=0.0))
+  angle = 2.0 * torch.atan2(sin_half, w)
+  s = angle / torch.clamp(sin_half, min=1e-12)
+  return (x * s, y * s, z * s)
+
+
 def const_vec3(v, like) -> Vec3:
   """Broadcast a static length-3 vector to the layout of `like`."""
   return (torch.full_like(like, float(v[0])),

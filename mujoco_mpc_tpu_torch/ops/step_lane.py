@@ -30,11 +30,18 @@ uses it only for tensors that live on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
 Model class: hinge/slide/free joints, joint transmissions, joint limits,
-world-static plane vs sphere contacts (pyramidal rows, condim-1 rows, or
-elliptic cone blocks at condim 3/4/6 with impratio). Fluid forces, site
-transmissions, capsule/box ground contacts, body-body pairs and the
-feedback-control mode are not ported yet: `supports` returns False for
-them and `build_rollout_kernel` raises.
+the inertia-box fluid model (viscosity / density / wind), world-static
+plane vs sphere contacts (pyramidal rows, condim-1 rows, or elliptic cone
+blocks at condim 3/4/6 with impratio). Site transmissions, capsule/box
+ground contacts, body-body pairs and per-step aux rows are not ported yet:
+`supports` returns False for them and `build_rollout_kernel` raises.
+
+Two control modes: the zero-order-hold spline of the sampling planners, and
+the feedback law of iLQG's line searches (`feedback=True`),
+u = clip(u_nom[t] + alpha k[t] + scale K[t] dx, lo, hi) with dx the tangent
+difference between the candidate's state and the nominal one, alpha and
+scale per candidate, and the per-step table (u_nom, k, K, x_nom) shared by
+all candidates and read from global memory.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from mujoco_mpc_tpu_torch.ops import _build
 from mujoco_mpc_tpu_torch.ops import lanemath as lm
 from mujoco_mpc_tpu_torch.physics.model import (
     BIAS_NONE, FREE, GAIN_FIXED, GEOM_PLANE, GEOM_SPHERE, HINGE, SLIDE,
-    TRN_JOINT, Model)
+    TRN_JOINT, Model, fluid_box)
 
 # launches of the CUDA kernel made by any rollout wrapper of this module
 # (incremented where a wrapper launches, nowhere else)
@@ -114,9 +121,6 @@ def supports(m: Model, ground_only: bool = False, contact_types=None,
   for u in range(m.nu):
     if int(m.actuator_trntype[u]) != TRN_JOINT:
       return False
-  if float(m.opt.viscosity) > 0 or float(m.opt.density) > 0 or \
-      np.any(_np(m.opt.wind) != 0):
-    return False
   return True
 
 
@@ -147,6 +151,8 @@ def _static(m: Model) -> dict:
       forcelimited=g(m.actuator_forcelimited),
       impratio=float(g(m.opt.impratio)),
       cone=int(m.opt.cone),
+      viscosity=float(g(m.opt.viscosity)), density=float(g(m.opt.density)),
+      wind=g(m.opt.wind),
   )
 
 
@@ -275,8 +281,35 @@ def _limit_plan(m: Model, c: dict) -> list:
   return out
 
 
+def _fluid_plan(m: Model, c: dict) -> list:
+  """Per body with mass, the inertia-box fluid coefficients (viscous
+  torque / force, quadratic-drag force / torque per local axis); empty when
+  the medium has no viscosity, density or wind."""
+  visc, rho = c["viscosity"], c["density"]
+  if not (visc > 0.0 or rho > 0.0 or np.any(c["wind"] != 0.0)):
+    return []
+  box = fluid_box(c["body_mass"], c["body_inertia"])
+  out = []
+  for i in range(1, m.nbody):
+    if float(c["body_mass"][i]) <= 1e-12:
+      continue
+    b0, b1, b2 = (float(v) for v in box[i])
+    diam = (b0 + b1 + b2) / 3.0
+    out.append(dict(
+        body=i, visc_t=np.pi * diam ** 3 * visc,
+        visc_f=3.0 * np.pi * diam * visc,
+        dens_f=[0.5 * rho * b1 * b2, 0.5 * rho * b0 * b2,
+                0.5 * rho * b0 * b1],
+        dens_t=[rho * b0 * (b1 ** 4 + b2 ** 4) / 64.0,
+                rho * b1 * (b0 ** 4 + b2 ** 4) / 64.0,
+                rho * b2 * (b0 ** 4 + b1 ** 4) / 64.0],
+        dofs=[d for d in range(m.nv) if m.body_dof_mask[i][d] > 0]))
+  return out
+
+
 def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
-                    n_newton: int, n_ls: int, residual_fn, residual_dim):
+                    fluid: list, n_newton: int, n_ls: int, residual_fn,
+                    residual_dim):
   """The plain PyTorch step on component lists of (K,) tensors."""
   nq, nv, nu, nb = m.nq, m.nv, m.nu, m.nbody
   h = c["timestep"]
@@ -513,6 +546,27 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
           qpos[qadr] - float(c["qpos_spring"][qadr]))
     for i in range(nv):
       qfrc[i] = qfrc[i] - float(c["dof_damping"][i]) * qvel[i]
+
+    # fluid: viscous and quadratic drag on each body's inertia box, in the
+    # body's inertial frame, applied at its com
+    for fl in fluid:
+      i = fl["body"]
+      off = lm.vsub(xipos[i], ref[i])
+      w_w, v_w = cvel[i]
+      v_w = lm.vsub(lm.vadd(v_w, lm.vcross(w_w, off)), cv(c["wind"]))
+      qw = lm.qmul(xquat[i], lm.const_quat(c["body_iquat"][i], like))
+      qc = (qw[0], -qw[1], -qw[2], -qw[3])
+      la = lm.qrot(qc, w_w)   # local (inertial-frame) angular velocity
+      ll = lm.qrot(qc, v_w)   # local linear velocity
+      tq = tuple(-fl["visc_t"] * la[k] -
+                 fl["dens_t"][k] * torch.abs(la[k]) * la[k] for k in range(3))
+      fr = tuple(-fl["visc_f"] * ll[k] -
+                 fl["dens_f"][k] * torch.abs(ll[k]) * ll[k] for k in range(3))
+      f_w = lm.qrot(qw, fr)
+      t_ref = lm.vadd(lm.qrot(qw, tq), lm.vcross(off, f_w))
+      for dof in fl["dofs"]:
+        qfrc[dof] = qfrc[dof] + lm.vdot(cdof[dof][0], t_ref) + \
+            lm.vdot(cdof[dof][1], f_w)
 
     act_force = []
     for u in range(nu):
@@ -927,7 +981,8 @@ def _pad(a, shape, dtype) -> np.ndarray:
 
 
 def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
-                 cost_terms, residual, table_float=np.float32) -> tuple:
+                 fluid: list, cost_terms, residual,
+                 table_float=np.float32) -> tuple:
   """Bytes of the kernel's constant tables (field order of `TablesHead` in
   ops/csrc/lane_rollout.cu, then the task's constant block) and the
   row-count dimensions they imply."""
@@ -969,6 +1024,16 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   def col(key, dtype, shape):
     return _pad([con[key] for con in contacts], shape, dtype)
 
+  fluid_on = np.zeros(nb, i32)
+  for fl in fluid:
+    fluid_on[fl["body"]] = 1
+
+  def fluid_col(get, width):
+    out = np.zeros((nb, width), np.float64)
+    for fl in fluid:
+      out[fl["body"]] = get(fl)
+    return out
+
   fields = [
       (m.body_parentid, i32, (nb,)), (m.body_rootid, i32, (nb,)),
       (m.body_jntadr, i32, (nb,)), (m.body_jntnum, i32, (nb,)),
@@ -993,6 +1058,8 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       (econ_con, i32, (_d1(necon),)),
       ([t for t, _ in (cost_terms or ())], i32, (_d1(nterm),)),
       ([d for _, d in (cost_terms or ())], i32, (_d1(nterm),)),
+      (np.asarray(m.body_dof_mask) > 0, i32, (nb, _d1(nv))),
+      (fluid_on, i32, (nb,)),
       ([h], f32, (1,)), (c["gravity"], f32, (3,)),
       (c["body_pos"], f32, (nb, 3)), (c["body_quat"], f32, (nb, 4)),
       (c["body_ipos"], f32, (nb, 3)), (c["body_iquat"], f32, (nb, 4)),
@@ -1031,6 +1098,10 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       ([nfscales(con) for con in contacts], f32, (_d1(ncon), 5)),
       ([nfscales(con) ** 2 for con in contacts], f32, (_d1(ncon), 5)),
       (prow_smu, f32, (_d1(nprow),)),
+      (c["wind"], f32, (3,)),
+      (fluid_col(lambda fl: [fl["visc_t"], fl["visc_f"]], 2), f32, (nb, 2)),
+      (fluid_col(lambda fl: fl["dens_f"], 3), f32, (nb, 3)),
+      (fluid_col(lambda fl: fl["dens_t"], 3), f32, (nb, 3)),
   ]
   if residual is not None:
     fields += [(v, f32 if dt == np.float32 else dt, np.asarray(v).shape)
@@ -1041,7 +1112,7 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   # rows every elliptic block carries: the largest condim among them
   erows = max([contacts[ci]["condim"] for ci in econ_con] + [1])
   dims = dict(NLIMJ=nlimj, NCON=ncon, NPROW=nprow, NECON=necon, NSUP=nsup,
-              EROWS=erows)
+              EROWS=erows, FLUID=int(bool(fluid)))
   return blob, dims
 
 
@@ -1050,7 +1121,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                          solver_iters=None, solver_ls_iters=None,
                          residual: Optional[dict] = None, naux: int = 0,
                          record_states: bool = True,
-                         cost_terms=None, *, _block: int = 32,
+                         cost_terms=None, feedback: bool = False, *,
+                         _block: int = 32,
                          _profile: bool = False,
                          _table_float=np.float32) -> Callable:
   """Returns fn(qpos0 (nq,K), qvel0 (nv,K), values (P*nu,K), aux=None) for
@@ -1073,6 +1145,17 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   step on the pre-step state. solver_iters / solver_ls_iters default to
   the model's own schedule.
 
+  With `feedback=True` (recorded states only; `num_nodes` is not used) the
+  callable is fn(qpos0, qvel0, values (2,K), aux, table (horizon*stride,))
+  and the control of step t is
+    u = clip(u_nom[t] + alpha k[t] + scale K[t] dx, ctrlrange)
+  with alpha = values[0], scale = values[1] per candidate, dx the tangent
+  difference [qpos (-) x_nom.qpos; qvel - x_nom.qvel] (subtraction for
+  hinge/slide joints, the quaternion log map for a free joint) and
+  `table` the per-step blocks [u_nom (nu), k (nu), K (nu x 2nv, row-major),
+  x_nom (nq+nv)], stride = 2nu + 2nu*nv + nq + nv, shared by all
+  candidates (`.stride`, `.feedback_ctrl` expose the layout and the law).
+
   The underscored arguments are for measuring tools and tests only:
   `_block` threads per CUDA block (one warp per block spreads the
   flagship's 4096 candidates over the most SMs; 64 and 128 were measured
@@ -1090,8 +1173,9 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                   contact_geoms=contact_geoms):
     raise NotImplementedError(
         "model outside the ported kernel class (see ops/step_lane.py: "
-        "fluid, site transmissions, non-sphere ground contacts and "
-        "body-body pairs are not ported yet)")
+        "site transmissions, non-sphere ground contacts, body-body pairs, "
+        "ball joints, equality constraints, friction loss and activation "
+        "states are not ported yet)")
   c = _static(m)
   nq, nv, nu = m.nq, m.nv, m.nu
   n_newton = int(m.opt.iterations) if solver_iters is None \
@@ -1103,6 +1187,13 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                       num_nodes - 1) for t in range(horizon)]
   limits = _limit_plan(m, c)
   contacts = _contact_plan(m, c, contact_types, contact_geoms)
+  fluid = _fluid_plan(m, c)
+  ndx = 2 * nv
+  stride = 2 * nu + nu * ndx + nq + nv
+  if feedback and not record_states:
+    raise ValueError("feedback=True records states (record_states=True)")
+  ctrl_lo = [float(c["ctrlrange"][u][0]) for u in range(nu)]
+  ctrl_hi = [float(c["ctrlrange"][u][1]) for u in range(nu)]
 
   residual_fn = residual["fn"] if residual is not None else None
   nr = int(residual["dim"]) if residual is not None else 0
@@ -1117,8 +1208,39 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   mode = MODE_STATES if record_states else (
       MODE_COST_SUMS if cost_terms else MODE_RESIDUALS)
 
-  step_body = _make_step_body(m, c, limits, contacts, n_newton, n_ls,
+  step_body = _make_step_body(m, c, limits, contacts, fluid, n_newton, n_ls,
                               residual_fn, nr)
+
+  def feedback_ctrl(t, qpos, qvel, alpha, scale, table):
+    """The feedback law on component lists: table is (horizon, stride)."""
+    row = table[t]
+    xb = 2 * nu + nu * ndx
+    dx = [None] * nv
+    for j in range(m.njnt):
+      jt, qa, da = int(m.jnt_type[j]), int(m.jnt_qposadr[j]), \
+          int(m.jnt_dofadr[j])
+      if jt == FREE:
+        for i in range(3):
+          dx[da + i] = qpos[qa + i] - row[xb + qa + i]
+        qa, da = qa + 3, da + 3
+      if jt == FREE:
+        rot = lm.quat_sub_tangent(
+            tuple(qpos[qa + i] for i in range(4)),
+            tuple(row[xb + qa + i] for i in range(4)))
+        for i in range(3):
+          dx[da + i] = rot[i]
+      else:   # hinge / slide: plain subtraction
+        dx[da] = qpos[qa] - row[xb + qa]
+    dx = dx + [qvel[i] - row[xb + nq + i] for i in range(nv)]
+    us = []
+    for u in range(nu):
+      cff = row[u] + alpha * row[nu + u]
+      g0 = 2 * nu + u * ndx
+      acc = row[g0] * dx[0]
+      for i in range(1, ndx):
+        acc = acc + row[g0 + i] * dx[i]
+      us.append(torch.clamp(cff + scale * acc, ctrl_lo[u], ctrl_hi[u]))
+    return us
 
   def term_costs(res, norm_p):
     out = []
@@ -1129,8 +1251,10 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       off += dim
     return out
 
-  def rollout_plain(qpos0, qvel0, values, aux=None):
+  def rollout_plain(qpos0, qvel0, values, aux=None, table=None):
     """The whole rollout as plain PyTorch ops (any device)."""
+    if feedback:
+      table = table.reshape(horizon, stride)
     qpos = [qpos0[i] for i in range(nq)]
     qvel = [qvel0[i] for i in range(nv)]
     aux_rows = norm_p = None
@@ -1141,8 +1265,11 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
     sums = [torch.zeros_like(qpos[0]) for _ in range(nterm)]
     recorded = []
     for t in range(horizon):
-      node = node_of_step[t]
-      ctrl = [values[node * nu + u] for u in range(nu)]
+      if feedback:
+        ctrl = feedback_ctrl(t, qpos, qvel, values[0], values[1], table)
+      else:
+        node = node_of_step[t]
+        ctrl = [values[node * nu + u] for u in range(nu)]
       new_qpos, new_qvel, res = step_body(qpos, qvel, ctrl, t, aux_rows)
       if cost_terms:
         sums = [s_ + c_ for s_, c_ in zip(sums, term_costs(res, norm_p))]
@@ -1162,14 +1289,14 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   state = dict(lib=None, blob=None)
 
   def defines():
-    blob, dims = _pack_tables(m, c, limits, contacts, cost_terms, residual,
-                              _table_float)
+    blob, dims = _pack_tables(m, c, limits, contacts, fluid, cost_terms,
+                              residual, _table_float)
     header = residual["header"] if residual is not None \
         else "residual_none.cuh"
     d = dict(NQ=nq, NV=nv, NU=nu, NBODY=m.nbody, NJNT=m.njnt, H=horizon,
              P=num_nodes, NAUX=naux, NTERM=nterm, NR=nr, N_NEWTON=n_newton,
              N_LS=n_ls, MODE=mode, CONE=int(c["cone"]), BLOCK=int(_block),
-             PROFILE=int(_profile),
+             PROFILE=int(_profile), CTRL=int(feedback),
              **dims)
     out = {f"LR_{k}": v for k, v in d.items()}
     out["RESIDUAL_HEADER"] = header   # stringified by the source
@@ -1184,7 +1311,7 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       lib.lane_set_tables.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                       ctypes.c_void_p]
       lib.lane_rollout.restype = ctypes.c_int
-      lib.lane_rollout.argtypes = [ctypes.c_void_p] * 6 + [
+      lib.lane_rollout.argtypes = [ctypes.c_void_p] * 7 + [
           ctypes.c_int, ctypes.c_void_p]
       if lib.lane_tables_size() != len(blob):
         raise RuntimeError(
@@ -1201,13 +1328,22 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
           f"({rows}, {k}), got {x.dtype} {tuple(x.shape)} on {x.device}"
           f"{'' if x.is_contiguous() else ' (not contiguous)'}")
 
-  def rollout_cuda(qpos0, qvel0, values, aux=None):
+  def rollout_cuda(qpos0, qvel0, values, aux=None, table=None):
     global launch_count
     k = qpos0.shape[-1]
     dev = qpos0.device
     _check(qpos0, nq, k, "qpos0")
     _check(qvel0, nv, k, "qvel0")
-    if nu == 0:
+    if feedback:
+      _check(values, 2, k, "values")
+      if table is None or table.device != dev or \
+          table.dtype != torch.float32 or \
+          tuple(table.shape) != (horizon * stride,) or \
+          not table.is_contiguous():
+        raise ValueError(
+            "table: expected a contiguous float32 tensor of shape "
+            f"({horizon * stride},) on {dev}")
+    elif nu == 0:
       values = torch.zeros((1, k), dtype=torch.float32, device=dev)
     else:
       _check(values, num_nodes * nu, k, "values")
@@ -1217,6 +1353,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       _check(aux, max(naux_kernel, 1), k, "aux")
     else:
       aux = values  # never read
+    if not feedback:
+      table = values  # never read
     lib = library()
     f32 = dict(dtype=torch.float32, device=dev)
     if mode == MODE_STATES:
@@ -1239,16 +1377,19 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
         lib.tables_owner = state
       err = lib.lane_rollout(qpos0.data_ptr(), qvel0.data_ptr(),
                              values.data_ptr(), aux.data_ptr(),
-                             out0.data_ptr(), out1.data_ptr(), k, stream)
+                             table.data_ptr(), out0.data_ptr(),
+                             out1.data_ptr(), k, stream)
     if err != 0:
       raise RuntimeError(f"lane_rollout launch failed: CUDA error {err}")
     launch_count += 1
     return out0 if mode == MODE_STATES else (out0, out1)
 
-  def rollout(qpos0, qvel0, values, aux=None):
+  def rollout(qpos0, qvel0, values, aux=None, table=None):
+    if feedback and table is None:
+      raise ValueError("feedback=True needs the per-step table")
     if qpos0.device.type == "cuda":
-      return rollout_cuda(qpos0, qvel0, values, aux)
-    return rollout_plain(qpos0, qvel0, values, aux)
+      return rollout_cuda(qpos0, qvel0, values, aux, table)
+    return rollout_plain(qpos0, qvel0, values, aux, table)
 
   def step_array(qpos, qvel, ctrl, t=0, aux=None):
     """One physics step as plain PyTorch on (dim, K) tensors."""
@@ -1279,4 +1420,6 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   rollout.build_defines = lambda: defines()[0]
   rollout.tables = lambda: defines()[1]
   rollout.mode = mode
+  rollout.stride = stride
+  rollout.feedback_ctrl = feedback_ctrl
   return rollout

@@ -1,9 +1,10 @@
-"""Model / Data records for the lane rollout path.
+"""Model / Data records.
 
-`Model` holds a compiled MuJoCo model restricted to what the lane rollout
-kernel and its planner read: tree-structure tables stay host-side numpy
-arrays (they drive static loops and fill the kernel's constant tables),
-numeric parameters are float32 tensors on the chosen device. Field names
+`Model` holds a compiled MuJoCo model restricted to what the ported paths
+read (the lane rollout kernel and its planners, the contact-free pipeline
+physics): tree-structure tables stay host-side numpy arrays (they drive
+static loops and fill the kernel's constant tables), numeric parameters
+are float32 tensors on the chosen device. Field names
 are those of the JAX package's physics/model.py so a reader finds the
 counterpart. Building a Model straight from an `MjModel` (`put_model`)
 arrives in a later slice; for now a Model comes from a dictionary of numpy
@@ -34,11 +35,20 @@ GEOM_CYLINDER = 5
 GEOM_BOX = 6
 GEOM_MESH = 7
 
-# Actuator gain / bias / transmission types
+# Integrators (match mjtIntegrator values)
+EULER = 0
+RK4 = 1
+IMPLICIT = 2
+IMPLICITFAST = 3
+
+# Actuator dynamics / gain / bias / transmission types
+DYN_NONE = 0
 GAIN_FIXED = 0
 GAIN_AFFINE = 1
+GAIN_MUSCLE = 2
 BIAS_NONE = 0
 BIAS_AFFINE = 1
+BIAS_MUSCLE = 2
 TRN_JOINT = 0
 TRN_SITE = 4
 
@@ -94,6 +104,9 @@ class Option:
   cone: int = CONE_PYRAMIDAL
   iterations: int = 6
   ls_iterations: int = 4
+  integrator: int = EULER
+  noslip_iterations: int = 0
+  disableflags: int = 0
 
   def replace(self, **kw) -> "Option":
     return dataclasses.replace(self, **kw)
@@ -101,10 +114,11 @@ class Option:
 
 OPTION_TENSORS = ("timestep", "gravity", "wind", "density", "viscosity",
                   "impratio")
-OPTION_STATIC = ("cone", "iterations", "ls_iterations")
+OPTION_STATIC = ("cone", "iterations", "ls_iterations", "integrator",
+                 "noslip_iterations", "disableflags")
 
 MODEL_SIZES = ("nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite",
-               "nmocap", "nuserdata", "neq")
+               "nmocap", "nuserdata", "neq", "ntendon")
 MODEL_TABLES = (
     "body_parentid", "body_rootid", "body_jntadr", "body_jntnum",
     "body_dofadr", "body_dofnum", "body_mocapid", "jnt_type",
@@ -112,7 +126,8 @@ MODEL_TABLES = (
     "dof_bodyid", "dof_jntid", "dof_ancestor_mask", "body_dof_mask",
     "geom_type", "geom_bodyid", "site_bodyid", "actuator_trntype",
     "actuator_trnid", "actuator_gaintype", "actuator_biastype",
-    "actuator_ctrllimited", "actuator_forcelimited")
+    "actuator_ctrllimited", "actuator_forcelimited", "actuator_dyntype",
+    "subtree_mask", "dof_pred_mask", "dof_cdofdot_zero")
 MODEL_TENSORS = (
     "qpos0", "qpos_spring", "body_pos", "body_quat", "body_ipos",
     "body_iquat", "body_mass", "body_subtreemass", "body_inertia",
@@ -122,6 +137,96 @@ MODEL_TENSORS = (
     "geom_pos", "geom_quat", "geom_size", "site_pos", "site_quat",
     "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange",
     "actuator_forcerange", "actuator_gear")
+
+
+def fluid_box(body_mass, body_inertia) -> np.ndarray:
+  """Equivalent inertia-box sizes per body (nbody, 3) of the fluid model,
+  from the masses and the principal moments: host arithmetic on model
+  constants, shared by the pipeline physics and the lane kernel's tables."""
+  mass = np.maximum(np.asarray(body_mass, np.float64), 1e-15)
+  i0, i1, i2 = (np.asarray(body_inertia, np.float64)[:, k] for k in range(3))
+  return np.stack([
+      np.sqrt(np.maximum(1e-12, (i1 + i2 - i0) * 3.0 / (2.0 * mass))),
+      np.sqrt(np.maximum(1e-12, (i0 + i2 - i1) * 3.0 / (2.0 * mass))),
+      np.sqrt(np.maximum(1e-12, (i0 + i1 - i2) * 3.0 / (2.0 * mass))),
+  ], axis=-1)
+
+
+DEVICE_MASKS = ("subtree_mask", "body_dof_mask", "dof_pred_mask",
+                "dof_cdofdot_zero", "dof_ancestor_mask")
+DEVICE_INDICES = ("body_rootid", "site_bodyid", "dof_bodyid", "dof_jntid")
+
+
+def _device_tables(kw: dict, fields: dict, dev, device) -> dict:
+  """The `Model.dev` constants from the host tables `kw` and the numeric
+  fields; `dev` maps a numpy value to a float32 tensor on `device`."""
+  tables = {k: dev(kw[k]) for k in DEVICE_MASKS}
+  tables.update({k: torch.as_tensor(
+      np.array(kw[k], dtype=np.int64)).to(device) for k in DEVICE_INDICES})
+  flags = dict(
+      ctrllimited=kw["actuator_ctrllimited"] != 0,
+      forcelimited=kw["actuator_forcelimited"] != 0,
+      gain_fixed=kw["actuator_gaintype"] == GAIN_FIXED,
+      bias_none=kw["actuator_biastype"] == BIAS_NONE)
+  tables.update({k: torch.as_tensor(np.array(v, dtype=bool)).to(device)
+                 for k, v in flags.items()})
+  # joint transmissions: constant moment matrix; the length of a scalar
+  # joint's actuator is gear0 * qpos[trn_qadr] (zero for free / ball)
+  nu, nv = kw["nu"], kw["nv"]
+  moment = np.zeros((nu, nv), np.float32)
+  trn_qadr = np.zeros((nu,), np.int64)
+  len_gear = np.zeros((nu,), np.float32)
+  gear = np.asarray(fields["actuator_gear"], np.float32).reshape(nu, 6)
+  for u in range(nu):
+    if int(kw["actuator_trntype"][u]) != TRN_JOINT:
+      continue
+    tid = int(kw["actuator_trnid"][u, 0])
+    jtype, dadr = int(kw["jnt_type"][tid]), int(kw["jnt_dofadr"][tid])
+    if jtype in (HINGE, SLIDE):
+      moment[u, dadr] = gear[u, 0]
+      trn_qadr[u] = int(kw["jnt_qposadr"][tid])
+      len_gear[u] = gear[u, 0]
+    else:
+      ndof = 6 if jtype == FREE else 3
+      moment[u, dadr:dadr + ndof] = gear[u, :ndof]
+  # joint-limit rows, two per limited hinge/slide joint (lower, upper)
+  lim = [j for j in range(kw["njnt"]) if kw["jnt_limited"][j]
+         and int(kw["jnt_type"][j]) in (HINGE, SLIDE)]
+  nrow = 2 * len(lim)
+  lim_j = np.zeros((nrow, nv), np.float32)
+  lim_cols = {k: [] for k in ("qadr", "sign", "range", "margin", "solref",
+                              "solimp", "diag")}
+  for r, (j, side) in enumerate((j, s) for j in lim for s in (0, 1)):
+    dadr = int(kw["jnt_dofadr"][j])
+    sign = 1.0 if side == 0 else -1.0
+    lim_j[r, dadr] = sign
+    lim_cols["qadr"].append(int(kw["jnt_qposadr"][j]))
+    lim_cols["sign"].append(sign)
+    lim_cols["range"].append(fields["jnt_range"][j][side])
+    lim_cols["margin"].append(fields["jnt_margin"][j])
+    lim_cols["solref"].append(fields["jnt_solref"][j])
+    lim_cols["solimp"].append(fields["jnt_solimp"][j])
+    lim_cols["diag"].append(fields["dof_invweight0"][dadr])
+  tables["lim_J"] = dev(lim_j)
+  tables["lim_qadr"] = torch.as_tensor(
+      np.array(lim_cols["qadr"], dtype=np.int64)).to(device)
+  for k, width in (("sign", ()), ("range", ()), ("margin", ()),
+                   ("solref", (2,)), ("solimp", (5,)), ("diag", ())):
+    tables["lim_" + k] = dev(
+        np.array(lim_cols[k], np.float32).reshape((nrow,) + width))
+  tables["trn_moment"] = dev(moment)
+  tables["trn_len_gear"] = dev(len_gear)
+  tables["trn_qadr"] = torch.as_tensor(trn_qadr).to(device)
+  tables["has_damping"] = bool(np.any(np.asarray(
+      fields["dof_damping"]) > 0))
+  tables["has_frictionloss"] = bool(np.any(np.asarray(
+      fields["dof_frictionloss"]) > 0))
+  not_world = np.ones((kw["nbody"], 1), np.float32)
+  not_world[0] = 0.0
+  tables["not_world"] = dev(not_world)
+  tables["fluid_box"] = dev(fluid_box(fields["body_mass"],
+                                      fields["body_inertia"]))
+  return tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +243,7 @@ class Model:
   nmocap: int
   nuserdata: int
   neq: int
+  ntendon: int
   # tree / index tables (host numpy)
   body_parentid: np.ndarray
   body_rootid: np.ndarray
@@ -164,6 +270,10 @@ class Model:
   actuator_biastype: np.ndarray
   actuator_ctrllimited: np.ndarray
   actuator_forcelimited: np.ndarray
+  actuator_dyntype: np.ndarray
+  subtree_mask: np.ndarray        # (nbody, nbody): c in the subtree of b
+  dof_pred_mask: np.ndarray       # (nv, nv): dofs in the pre-velocity of j
+  dof_cdofdot_zero: np.ndarray    # (nv,): cdof_dot identically zero
   # numeric parameters (float32 tensors)
   qpos0: torch.Tensor
   qpos_spring: torch.Tensor
@@ -199,6 +309,14 @@ class Model:
   opt: Option = None
   collision_pairs: Any = None
   names: Any = None
+  # device-side constants the pipeline physics uses in tensor ops: float32
+  # copies of the mask tables (DEVICE_MASKS), int64 index vectors
+  # (DEVICE_INDICES), boolean actuator flags, `not_world` (nbody, 1) and the
+  # fluid model's `fluid_box` (nbody, 3), the joint transmissions' constant
+  # moment matrix `trn_moment` (nu, nv) with `trn_qadr` / `trn_len_gear`,
+  # the joint-limit rows' constants `lim_*` (two rows per limited joint),
+  # and two host booleans `has_damping` / `has_frictionloss`
+  dev: Any = None
 
   def replace(self, **kw) -> "Model":
     return dataclasses.replace(self, **kw)
@@ -234,18 +352,63 @@ class Model:
               "con_condim", "con_friction", "con_solref", "con_solimp",
               "con_includemargin")})
     names = {k: list(v) for k, v in (fields.get("names") or {}).items()}
-    return cls(opt=opt, collision_pairs=pairs, names=names, **kw)
+    tables = _device_tables(kw, fields, dev, device)
+    return cls(opt=opt, collision_pairs=pairs, names=names, dev=tables,
+               **kw)
 
 
 @dataclasses.dataclass(frozen=True)
 class Data:
-  """Dynamic state the lane planner reads."""
+  """Dynamic state, and the quantities the pipeline physics derives from it
+  (None until the stage that computes them has run)."""
   qpos: torch.Tensor
   qvel: torch.Tensor
   time: torch.Tensor
   mocap_pos: torch.Tensor
   mocap_quat: torch.Tensor
   userdata: torch.Tensor
+  act: torch.Tensor = None
+  ctrl: torch.Tensor = None
+  qfrc_applied: torch.Tensor = None
+  xfrc_applied: torch.Tensor = None   # (nbody, 6) world wrench at body com
+  # position-dependent
+  xpos: torch.Tensor = None
+  xquat: torch.Tensor = None
+  xmat: torch.Tensor = None
+  xipos: torch.Tensor = None
+  ximat: torch.Tensor = None
+  xanchor: torch.Tensor = None
+  xaxis: torch.Tensor = None
+  site_xpos: torch.Tensor = None
+  site_xmat: torch.Tensor = None
+  subtree_com: torch.Tensor = None
+  cinert: torch.Tensor = None         # (nbody, 10)
+  cdof: torch.Tensor = None           # (nv, 6)
+  qM: torch.Tensor = None
+  qLD: torch.Tensor = None            # Cholesky factor of qM
+  # velocity-dependent
+  cvel: torch.Tensor = None           # (nbody, 6)
+  cdof_dot: torch.Tensor = None       # (nv, 6)
+  qfrc_bias: torch.Tensor = None
+  qfrc_passive: torch.Tensor = None
+  qfrc_actuator: torch.Tensor = None
+  actuator_force: torch.Tensor = None
+  actuator_length: torch.Tensor = None
+  actuator_velocity: torch.Tensor = None
+  act_dot: torch.Tensor = None
+  qfrc_smooth: torch.Tensor = None
+  qacc_smooth: torch.Tensor = None
+  # constraint rows (joint limits)
+  efc_J: torch.Tensor = None
+  efc_pos: torch.Tensor = None
+  efc_solref: torch.Tensor = None
+  efc_solimp: torch.Tensor = None
+  efc_diag: torch.Tensor = None
+  efc_D: torch.Tensor = None
+  efc_aref: torch.Tensor = None
+  efc_force: torch.Tensor = None
+  qfrc_constraint: torch.Tensor = None
+  qacc: torch.Tensor = None
 
   def replace(self, **kw) -> "Data":
     return dataclasses.replace(self, **kw)
@@ -272,4 +435,8 @@ def make_data(m: Model, device=None) -> Data:
       time=torch.zeros((), **f32),
       mocap_pos=torch.as_tensor(mocap_pos).to(device),
       mocap_quat=torch.as_tensor(mocap_quat).to(device),
-      userdata=torch.zeros((max(m.nuserdata, 1),), **f32))
+      userdata=torch.zeros((max(m.nuserdata, 1),), **f32),
+      act=torch.zeros((m.na,), **f32),
+      ctrl=torch.zeros((m.nu,), **f32),
+      qfrc_applied=torch.zeros((m.nv,), **f32),
+      xfrc_applied=torch.zeros((m.nbody, 6), **f32))

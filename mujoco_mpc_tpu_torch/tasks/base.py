@@ -5,8 +5,9 @@ A Task couples a compiled model with a residual and a cost built from
 user-sensor specs. In this package a task does not compile MJCF itself:
 it is built from a record (convert.task_record) that was exported once
 from the compiled task and is stored under assets/, so running a task
-needs no `mujoco`. Mode machines (`transition`) and the pipeline residual
-arrive with the agent loop.
+needs no `mujoco`. A task adds what its ported paths need: the lane
+residual spec of the rollout kernel, the pipeline `residual(m, d, params)`
+of the derivative planners, a host-side `transition`.
 """
 
 from __future__ import annotations

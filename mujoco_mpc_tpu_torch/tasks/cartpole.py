@@ -14,6 +14,15 @@ class Cartpole(base.Task):
   name = "Cartpole"
   asset = "cartpole.npz"
 
+  def residual(self, m, d, params: torch.Tensor) -> torch.Tensor:
+    """Pipeline residual on one Data (after physics.forward)."""
+    return torch.cat([
+        torch.cos(d.qpos[1:2]) - 1.0,   # Vertical
+        d.qpos[0:1] - params[0:1],      # Centered
+        d.qvel[1:2],                    # Velocity
+        d.ctrl[0:1],                    # Control
+    ])
+
   def residual_from_rollout(self, states: torch.Tensor,
                             ctrls: torch.Tensor, times: torch.Tensor,
                             params: torch.Tensor) -> torch.Tensor:

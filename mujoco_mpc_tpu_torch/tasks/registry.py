@@ -1,6 +1,6 @@
 """Task registry: name -> task class, loaded from the committed records.
 
-Only the tasks whose lane path is ported are registered; the others
+Only the tasks whose planner path is ported are registered; the others
 arrive with their slices.
 """
 
@@ -14,6 +14,7 @@ _REGISTRY: Dict[str, Callable] = {}
 _TASK_MODULES = [
     ("cartpole", ["Cartpole"]),
     ("quadruped", ["QuadrupedFlat"]),
+    ("swimmer", ["Swimmer"]),
 ]
 
 

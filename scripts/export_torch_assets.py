@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 ASSETS = {
     "Quadruped Flat": "quadruped_flat.npz",
     "Cartpole": "cartpole.npz",
+    "Swimmer": "swimmer.npz",
 }
 
 

@@ -1,5 +1,7 @@
-// Host stand-in for the few CUDA names lane_rollout.cu uses, so that its
-// arithmetic can be compiled with a C++ compiler and run on the CPU.
+// Host stand-in for the few CUDA names the kernel sources use, so that
+// their arithmetic can be compiled with a C++ compiler and run on the CPU:
+// one thread at a time, so a kernel with block barriers is emulated with a
+// block of ONE thread (its loops stride over all the work).
 #pragma once
 #include <math.h>
 #include <string.h>
@@ -10,6 +12,9 @@
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __ldg(p) (*(p))
+#define __syncthreads()
+#define __syncwarp()
 struct EmuIdx { int x; };
 static EmuIdx blockIdx, blockDim, threadIdx;
 typedef int cudaError_t;

@@ -1,14 +1,16 @@
-"""The CUDA source's arithmetic, run on the CPU.
+"""The CUDA sources' arithmetic, run on the CPU.
 
-There is no CUDA compiler where these tests run, but `lane_rollout.cu` is
-plain C++ apart from a handful of CUDA names. With those stood in for by
+There is no CUDA compiler where these tests run, but `lane_rollout.cu` and
+`riccati_backward.cu` are plain C++ apart from a handful of CUDA names. With those stood in for by
 `tests/cuda_host_shim/cuda_runtime.h` (one thread at a time in a loop) the
 host compiler builds the very source the card runs, and its output is held
 against the plain PyTorch version. Both run in float64 here (`float`
 redefined): the rollout is discontinuous at solver gates, so float32
 rounding would flip a gate now and then, while in float64 the two agree
 to ~1e-9 whenever the code paths are the same — which is what this test
-is after. What only the card can show (nvcc, registers, launches, float32
+is after. The Riccati kernel is a block of cooperating threads; here its
+block has ONE thread, whose strided loops then cover all the work in
+order, and the barriers are no-ops. What only the card can show (nvcc, registers, launches, float32
 agreement) is chip_smoke.py's part.
 """
 
@@ -24,34 +26,36 @@ import pytest
 import torch
 
 from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import riccati_lane as triccati
 from mujoco_mpc_tpu_torch.ops import step_lane as tstep
+from mujoco_mpc_tpu_torch.planners import ilqg as tilqg
 from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from tests import models as tm
 from tests.torch_port_helpers import (BALL, LIMITED, MIXED_CONTACTS,
-                                      models_from_xml)
+                                      models_from_xml, riccati_problem)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-7
 
 
-def _host_build(defines, tmp_path):
+def _host_build(defines, tmp_path, source="lane_rollout.cu"):
   gxx = shutil.which("g++") or shutil.which("c++")
   if gxx is None:
     pytest.skip("no host C++ compiler")
-  with open(os.path.join(_build.CSRC, "lane_rollout.cu")) as f:
+  with open(os.path.join(_build.CSRC, source)) as f:
     src = f.read()
-  src, n = re.subn(r"lane_rollout_kernel<<<\s*grid,\s*BLOCK,[^>]*>>>\(",
-                   "EMU_LAUNCH(lane_rollout_kernel, grid, BLOCK, ", src)
+  src, n = re.subn(r"(\w+_kernel)<<<\s*(\w+),\s*BLOCK,[^>]*>>>\(",
+                   r"EMU_LAUNCH(\1, \2, BLOCK, ", src)
   assert n == 1
-  fns = "pow sin cos sqrt fmax fmin fabs fmod cosh exp log1p".split()
+  fns = "pow sin cos sqrt fmax fmin fabs fmod cosh exp log1p atan2".split()
   inject = "#define float double\n" + "".join(
       f"#define {f}f {f}\n" for f in fns)
   src = src.replace("#include <math.h>\n", "#include <math.h>\n" + inject, 1)
   flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
   key = hashlib.sha256((src + " ".join(flags)).encode()).hexdigest()[:12]
-  cpp = os.path.join(tmp_path, f"lane_{key}.cpp")
-  lib = os.path.join(tmp_path, f"lane_{key}.so")
+  cpp = os.path.join(tmp_path, f"kernel_{key}.cpp")
+  lib = os.path.join(tmp_path, f"kernel_{key}.so")
   with open(cpp, "w") as f:
     f.write(src)
   # -fpack-struct: int and double members interleave without padding, as
@@ -64,7 +68,7 @@ def _host_build(defines, tmp_path):
   return ctypes.CDLL(lib)
 
 
-def _run_host(kern, outs, qpos, qvel, values, aux, tmp_path):
+def _run_host(kern, outs, qpos, qvel, values, aux, tmp_path, table=None):
   lib = _host_build(kern.build_defines(), str(tmp_path))
   blob = kern.tables()
   lib.lane_tables_size.restype = ctypes.c_int
@@ -72,9 +76,10 @@ def _run_host(kern, outs, qpos, qvel, values, aux, tmp_path):
   assert lib.lane_set_tables(blob, len(blob), None) == 0
   ptr = lambda x: ctypes.c_void_p(x.data_ptr())
   aux = values if aux is None else aux
+  table = values if table is None else table
   second = outs[1] if len(outs) > 1 else outs[0]
   assert lib.lane_rollout(ptr(qpos), ptr(qvel), ptr(values), ptr(aux),
-                          ptr(outs[0]), ptr(second),
+                          ptr(table), ptr(outs[0]), ptr(second),
                           ctypes.c_int(qpos.shape[1]), None) == 0
 
 
@@ -207,3 +212,97 @@ def test_cuda_source_quadruped_full_horizon_on_the_floor(tmp_path):
                              torch.isfinite(want[1]).all(dim=0))
   for g, w in zip(got, want):
     torch.testing.assert_close(g[:, alive], w[:, alive], atol=TOL, rtol=TOL)
+
+
+def test_cuda_source_swimmer_feedback_with_fluid_matches_plain(tmp_path):
+  """iLQG's line-search launch on Swimmer: the feedback control law (random
+  gains of realistic size around a random nominal) and the inertia-box
+  fluid forces, recorded states and residual rows over 12 steps."""
+  pt = tregistry.get_task("Swimmer", device="cpu")
+  m = pt.plan_model
+  spec = pt.lane_residual_spec()
+  horizon, k = 12, 6
+  kern = tstep.build_rollout_kernel(
+      m, horizon, 1, residual=spec, naux=spec["naux"], record_states=True,
+      feedback=True, _table_float=np.float64)
+  defs = kern.build_defines()
+  assert (defs["LR_CTRL"], defs["LR_FLUID"]) == (1, 1)
+  nq, nv, nu, ndx = m.nq, m.nv, m.nu, 2 * m.nv
+  assert kern.stride == 2 * nu + nu * ndx + nq + nv == 106
+  rng = np.random.default_rng(5)
+  d0 = pt.make_data()
+  qpos = d0.qpos.double()[:, None].repeat(1, k) + _rand(rng, nq, k, scale=0.2)
+  qvel = _rand(rng, nv, k, scale=0.5)
+  x_nom = np.concatenate([d0.qpos.numpy(), np.zeros(nv)])[None] + \
+      0.2 * rng.standard_normal((horizon, nq + nv))
+  blocks = np.concatenate([
+      rng.uniform(-0.8, 0.8, (horizon, nu)),             # u_nom
+      0.3 * rng.standard_normal((horizon, nu)),          # k
+      0.5 * rng.standard_normal((horizon, nu * ndx)),    # K
+      x_nom], axis=1)
+  table = torch.as_tensor(blocks.reshape(-1).copy())
+  values = torch.as_tensor(np.stack([
+      rng.uniform(0, 1, k), rng.uniform(0, 1, k)]))
+  aux = torch.as_tensor(np.tile(np.array([0.5, 0.5])[:, None], (1, k)))
+  want = kern.plain(qpos, qvel, values, aux, table)
+  got = torch.zeros_like(want)
+  _run_host(kern, [got], qpos.contiguous(), qvel, values, aux, tmp_path,
+            table=table)
+  assert torch.isfinite(want).all()
+  # the controls (first nu residual rows) hit the clip on some steps
+  ctrl = want[:, nq + nv:nq + nv + nu]
+  assert (ctrl.abs() == 1.0).any() and (ctrl.abs() < 1.0).any()
+  torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def _run_riccati_host(kern, prob, reg, tmp_path):
+  lib = _host_build(dict(kern.build_defines(), RB_BLOCK=1, RB_SMEM=0),
+                    str(tmp_path), source="riccati_backward.cu")
+  lib.riccati_workspace_floats.restype = ctypes.c_int
+  assert lib.riccati_workspace_floats() == kern.workspace_floats
+  t, nu = prob[3].shape
+  ndx = prob[2].shape[1]
+  ks = torch.zeros((t - 1, nu), dtype=torch.float64)
+  kmats = torch.zeros((t - 1, nu, ndx), dtype=torch.float64)
+  out = torch.zeros(3, dtype=torch.float64)
+  scratch = torch.zeros(kern.workspace_floats, dtype=torch.float64)
+  ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+  ins = [x.contiguous() for x in prob] + [reg.reshape(1)]
+  assert lib.riccati_backward(*[ptr(x) for x in ins], ptr(ks), ptr(kmats),
+                              ptr(out), ptr(scratch), None) == 0
+  return ks, kmats, out
+
+
+@pytest.mark.parametrize("reg_type", [0, 1, 2, 3])
+@pytest.mark.parametrize("tight_limits", [False, True])
+@pytest.mark.parametrize("ndx,nu,horizon", [(7, 3, 6), (16, 5, 12)])
+def test_riccati_source_matches_backward_pass(ndx, nu, horizon, tight_limits,
+                                              reg_type, tmp_path):
+  """The Riccati kernel's source against its plain version, float64, on
+  problems whose box-QP decisions have margins; with tight limits controls
+  sit on their bounds and the free-set inverse is exercised."""
+  prob = [torch.as_tensor(x).double() for x in riccati_problem(
+      horizon, ndx, nu, seed=100 + reg_type * 2 + tight_limits,
+      tight_limits=tight_limits)]
+  reg = torch.tensor(1e-2, dtype=torch.float64)
+  kern = triccati.build_backward_kernel(ndx, nu, horizon, 6, reg_type)
+  ks_w, km_w, (dv1, dv2), ok = tilqg.backward_pass(*prob, reg, 6, reg_type)
+  ks, kmats, out = _run_riccati_host(kern, prob, reg, tmp_path)
+  assert bool(ok) and float(out[2]) == 0.0
+  if tight_limits:
+    assert (ks_w.abs() == float(np.float32(0.05))).any()
+  torch.testing.assert_close(ks, ks_w, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(kmats, km_w, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(out[0], dv1, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(out[1], dv2, atol=TOL, rtol=TOL)
+
+
+def test_riccati_source_flags_non_finite_input(tmp_path):
+  prob = [torch.as_tensor(x).double() for x in riccati_problem(
+      6, 7, 3, seed=1, tight_limits=False)]
+  prob[2][2, 1] = float("nan")       # cx at t = 2
+  reg = torch.tensor(1e-2, dtype=torch.float64)
+  kern = triccati.build_backward_kernel(7, 3, 6, 6, 0)
+  _, _, out = _run_riccati_host(kern, prob, reg, tmp_path)
+  assert float(out[2]) == 1.0
+  assert not bool(tilqg.backward_pass(*prob, reg, 6, 0)[3])

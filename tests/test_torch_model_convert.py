@@ -20,7 +20,7 @@ from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from tests.torch_port_helpers import to_np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
-TASKS = ["Quadruped Flat", "Cartpole"]
+TASKS = ["Quadruped Flat", "Cartpole", "Swimmer"]
 
 
 def _exporter():
@@ -54,7 +54,7 @@ def test_every_ported_model_field_equals_jax(name, which):
   jm = getattr(jregistry.get_task(name), which)
   pm = getattr(tregistry.get_task(name, device="cpu"), which)
   for f in dataclasses.fields(tmodel.Model):
-    if f.name in ("opt", "collision_pairs", "names"):
+    if f.name in ("opt", "collision_pairs", "names", "dev"):
       continue
     want = np.asarray(getattr(jm, f.name))
     got = getattr(pm, f.name)
@@ -66,6 +66,10 @@ def test_every_ported_model_field_equals_jax(name, which):
         to_np(getattr(pm.opt, f.name)), np.asarray(getattr(jm.opt, f.name)),
         err_msg=f"opt.{f.name}")
   assert pm.names == {k: list(v) for k, v in jm.names.items()}
+  # the device-side copies are the host tables themselves
+  for k in tmodel.DEVICE_MASKS + tmodel.DEVICE_INDICES:
+    np.testing.assert_array_equal(to_np(pm.dev[k]), np.asarray(getattr(pm, k)),
+                                  err_msg=f"dev.{k}")
   jcp, pcp = jm.collision_pairs, pm.collision_pairs
   assert pcp.ncon == jcp.ncon and len(pcp.groups) == len(jcp.groups)
   for jg, pg in zip(jcp.groups, pcp.groups):
@@ -131,7 +135,7 @@ def test_task_from_record_and_data_from_numpy():
   d = convert.data_from_numpy(pt.model, qpos=[0.1, 0.2], time=0.5)
   assert d.qpos.tolist() == pytest.approx([0.1, 0.2])
   assert float(d.time) == 0.5 and d.qvel.shape == (2,)
-  assert tregistry.task_names() == ["Cartpole", "Quadruped Flat"]
+  assert tregistry.task_names() == ["Cartpole", "Quadruped Flat", "Swimmer"]
   with pytest.raises(KeyError):
     tregistry.get_task("Walker", device="cpu")
 
@@ -163,20 +167,38 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_port_uses_no_compiler_shortcuts_or_library_solvers():
-  """No torch.compile, no Triton, no library factorisation inside the
-  port: the rollout's Cholesky and Newton are its own."""
-  banned = re.compile(r"torch\.compile|import triton|torch\.linalg|"
-                      r"cholesky_solve|cpp_extension")
+  """No torch.compile, no Triton anywhere in the port, and no library
+  factorisation or matrix product where a kernel's arithmetic lives (ops/,
+  the planners' plain versions of the kernels): the rollout's Cholesky and
+  Newton and the Riccati sweep's Gauss-Jordan are their own. One file is
+  let two library calls: physics/smooth.py factors and solves the pipeline's
+  mass matrix with `torch.linalg.cholesky_ex` and
+  `torch.linalg.solve_triangular`, as the JAX package leaves that to its
+  array library; every other library solve is refused there too."""
+  banned = re.compile(r"torch\.compile|import triton|cpp_extension")
+  banned_solvers = re.compile(
+      r"torch\.linalg|cholesky_solve|torch\.cholesky|torch\.inverse|"
+      r"torch\.(?:lu|qr|svd|pinverse|lstsq)\b")
+  allowed = {os.path.join("physics", "smooth.py"): re.compile(
+      r"torch\.linalg\.(?:cholesky_ex|solve_triangular)\b")}
   for path in _python_files():
     if path.endswith("chip_smoke.py"):
       continue
     with open(path) as f:
-      hit = banned.search(f.read())
+      text = f.read()
+    hit = banned.search(text)
+    assert hit is None, f"{path}: {hit.group(0)!r}"
+    for tail, pattern in allowed.items():
+      if path.endswith(os.sep + tail):
+        assert len(pattern.findall(text)) == 3, path   # one factor, two solves
+        text = pattern.sub("", text)
+    hit = banned_solvers.search(text)
     assert hit is None, f"{path}: {hit.group(0)!r}"
   csrc = os.path.join(ROOT, "mujoco_mpc_tpu_torch", "ops", "csrc")
   assert sorted(os.listdir(csrc)) == [
       "lane_math.cuh", "lane_rollout.cu", "residual_none.cuh",
-      "residual_quadruped.cuh"]
+      "residual_quadruped.cuh", "residual_swimmer.cuh",
+      "riccati_backward.cu"]
   for name in os.listdir(csrc):
     with open(os.path.join(csrc, name)) as f:
       text = f.read()

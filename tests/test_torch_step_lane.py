@@ -154,9 +154,18 @@ def test_unported_model_classes_are_refused_not_dropped():
   assert tstep.supports(quad, ground_only=True, contact_types=(GEOM_SPHERE,))
   with pytest.raises(NotImplementedError):
     tstep.build_rollout_kernel(quad, 4, 1)
+  # a fluid medium is inside the kernel class; friction loss is not
   fluid = quad.replace(opt=quad.opt.replace(density=torch.tensor(1.2)))
-  assert not tstep.supports(fluid, ground_only=True,
+  assert tstep.supports(fluid, ground_only=True,
+                        contact_types=(GEOM_SPHERE,))
+  lossy = quad.replace(dof_frictionloss=torch.full((quad.nv,), 0.1))
+  assert not tstep.supports(lossy, ground_only=True,
                             contact_types=(GEOM_SPHERE,))
+  with pytest.raises(ValueError):           # feedback mode records states
+    tstep.build_rollout_kernel(
+        tregistry.get_task("Cartpole", device="cpu").plan_model, 4, 1,
+        record_states=False, feedback=True,
+        residual=dict(fn=lambda ctx: [], dim=0))
 
 
 @pytest.fixture(scope="module")

@@ -101,3 +101,26 @@ def models_from_xml(xml: str):
   jm = jax_model.put_model(mjm)
   pm = convert.model_from_jax_numpy(convert.model_fields(jm), device="cpu")
   return jm, pm, mjm
+
+
+def riccati_problem(horizon, ndx, nu, seed, tight_limits):
+  """One random iLQG backward-sweep problem as float32 numpy arrays (a, b,
+  cx, cu, cxx, cxu, cuu, lo, hi): near-identity dynamics, SPD cost
+  Hessians, control limits loose (5.0) or tight (0.05) — the generator of
+  tests/test_riccati_lane.py."""
+  rng = np.random.default_rng(seed)
+  f = np.float32
+  t = horizon
+  a = (np.eye(ndx) + 0.05 * rng.standard_normal((t - 1, ndx, ndx))).astype(f)
+  b = (0.1 * rng.standard_normal((t - 1, ndx, nu))).astype(f)
+  cx = (0.3 * rng.standard_normal((t, ndx))).astype(f)
+  cu = (0.3 * rng.standard_normal((t, nu))).astype(f)
+  w = rng.standard_normal((t, ndx, ndx))
+  cxx = (np.einsum("tij,tkj->tik", w, w) / ndx + 0.5 * np.eye(ndx)).astype(f)
+  cxu = (0.05 * rng.standard_normal((t, ndx, nu))).astype(f)
+  wu = rng.standard_normal((t, nu, nu))
+  cuu = (np.einsum("tij,tkj->tik", wu, wu) / nu + 0.5 * np.eye(nu)).astype(f)
+  lim = 0.05 if tight_limits else 5.0
+  lo = np.full((t - 1, nu), -lim, f)
+  hi = np.full((t - 1, nu), lim, f)
+  return a, b, cx, cu, cxx, cxu, cuu, lo, hi
