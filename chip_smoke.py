@@ -6,9 +6,11 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
 
   1. `device`  — fails unless a CUDA device is present; prints the card's
      name and power limit as `nvidia-smi` gives them;
-  2. `build`   — compiles every CUDA kernel of the two paths below (the
-     rollout kernel in its three output modes and in its feedback mode with
-     fluid, the Riccati kernel at every size and regularisation checked
+  2. `build`   — compiles every CUDA kernel of the paths below (the
+     rollout kernel in its three output modes, in its feedback mode with
+     fluid and in cost-sum mode with fluid, the Riccati kernel at every size
+     and regularisation checked here, the fused scoring kernel at each
+     ported task's cost, the batched Cholesky kernel at each size checked
      here) from ops/csrc/, all `nvcc` processes side by side, and prints
      seconds, registers and spills;
   3. `kernels` — runs each kernel's wrapper on CUDA tensors and holds the
@@ -16,7 +18,9 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      (made from a numpy seed), with the tolerances stated below; on the
      contact-rich inputs of the main path the comparison is step by step,
      beside a control (the plain version against itself, its input
-     perturbed in the last bits) measured in the same run;
+     perturbed in the last bits) measured in the same run; times each
+     kernel beside its bound, its plain version and, where one PyTorch call
+     computes the same function, that call;
   4. `main_path` — builds the Quadruped Flat task and the predictive
      sampling planner (K=4096 candidates, horizon 36, 3 spline points)
      through the entry points a user calls, runs 1 warm-up + 10 chained
@@ -25,19 +29,41 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      40, 4 feedback scales, 8 alphas) the same way, runs 1 warm-up + 10
      chained iterations from the same state, and checks the launches of
      the Riccati kernel and of the rollout kernel's feedback mode, the
-     returns, and prints the time of each stage; then runs the same
-     iterations once more, outside the timed and counted window, with both
+     returns, and prints the time of each stage; then runs the first 5 of
+     those iterations once more, outside the timed and counted window, with both
      kernels held against their plain versions on the very inputs the
      planner hands them (the derivatives' rank-deficient Gauss-Newton
      Hessians, the regularisation as the schedule swings it, the gains the
      backward sweep computed);
-  6. prints one JSON line describing every kernel, the card line, and
+  6. the rest of the sampling family, each built through the entry points
+     a user calls, 1 warm-up + chained iterations timed with CUDA events,
+     the launches of every kernel counted from 0 over the timed iterations,
+     the host synchronisations of one more iteration counted (PyTorch's
+     sync debug mode), the routes printed and the launches asserted:
+     `cem_path` (cross-entropy on Quadruped Flat, K=4096, H=36, lane
+     route), `sample_gradient_path` (the same task and size, two rollout
+     kernel launches an iteration), `robust_path` (Swimmer at its own
+     configuration, K=10, H=201: the clean batch on the rollout kernel,
+     the 4 x 4 noisy re-rolls on the pipeline physics with every SPD solve
+     on the batched Cholesky kernel and the returns from the fused scoring
+     kernel; afterwards one more iteration whose scoring and Cholesky
+     inputs are captured and held against the plain versions, and one
+     iteration of a second robust planner at a wrench noise the re-rolls
+     survive (std 0.05), whose inputs are held the same way over the whole
+     horizon),
+     `ilqs_path` (Swimmer, lane sampler + iLQG at H=201 with the feedback
+     rollouts and the Riccati kernel) and `cartpole_sampling_path` (the lane
+     planner's third branch: recorded states, then the fused scoring
+     kernel);
+  7. prints one JSON line describing every kernel, the card line, and
      `{"ok": true, ...}` as the last line.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
 JAX or the JAX package.
 """
 
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +79,9 @@ SEED = 0
 K_MAIN, HORIZON, SPLINE_POINTS, EXPLORATION = 4096, 36, 3, 0.04
 ITERATIONS = 10
 ILQG_HORIZON, ILQG_ITERATIONS = 40, 10
+# iterations repeated with both iLQG kernels checked on the planner's own
+# inputs (the first 5 of the timed 10: the check costs ~15 s an iteration)
+ILQG_CHECKED_ITERATIONS = 5
 
 # Tolerances, kernel vs its plain version on the same inputs, both float32
 # on the card. The two differ in summation order only, but the rollout is
@@ -99,6 +128,22 @@ TOL_STATES_SWIMMER = 2e-4
 # the float32 plain version, or when its distance from the float64 result is
 # at most this many times the float32 plain version's own distance.
 TOL_RICCATI_VS_PLAIN32 = 2.0
+# fused scoring kernel vs its plain version (the mean over the horizon of
+# CostSpec.cost): the JAX suite's bar for its kernel (tests/test_ops.py),
+# absolute and relative
+TOL_SCORE = 2e-4
+# batched Cholesky solve vs its plain version: the JAX suite's bar
+TOL_CHOL = 2e-3
+CEM_ITERATIONS = SG_ITERATIONS = CARTPOLE_ITERATIONS = 10
+ROBUST_ITERATIONS = ILQS_ITERATIONS = 5
+CHOL_SIZES = ((4, 128), (18, 128), (7, 256), (8, 16), (18, 4096))
+# the robust path's on-path checks: at the task's OU wrench noise (std 0.2)
+# the shortest sane prefix of the 16 re-rolls over the steps (23 and 24 in
+# the CPU reading and a card run); at std 0.05 the re-rolls survive (16 of
+# 16 in the CPU reading), all but ROBUST_SANE_SLACK of them are required to
+ROBUST_MIN_PREFIX = 10
+ROBUST_SANE_XFRC = 0.05
+ROBUST_SANE_SLACK = 2
 
 
 def emit(phase, **kw):
@@ -279,6 +324,96 @@ def check_riccati_on_path(kern, args):
   return row
 
 
+def count_syncs(fn):
+  """fn()'s result and the number of synchronising CUDA calls it made, as
+  PyTorch's sync debug mode reports them (a read-back to the host, a copy
+  from pageable host memory, an explicit synchronise)."""
+  import warnings
+  torch.cuda.set_sync_debug_mode("warn")
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter("always")
+      out = fn()
+  finally:
+    torch.cuda.set_sync_debug_mode("default")
+  return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def score_work(cost_spec, t_hor, k):
+  """(bytes moved once, float32 operations) of one fused scoring launch:
+  the residuals, weights and norm parameters read once, the returns written
+  once; per row of a step, a square and an add (quadratic, L2) or a
+  square, two adds, a square root and a subtraction (smooth-abs); per term
+  and step the norm's finish (quadratic 1, L2 4) and the weighted add (2);
+  per step the add into the total, per candidate the division."""
+  per_step = 1
+  for ntype, dim in zip(cost_spec.norm_types, cost_spec.dims):
+    per_step += {0: 2 * dim + 3, 2: 2 * dim + 6}.get(int(ntype), 5 * dim + 2)
+  nbytes = 4 * (t_hor * cost_spec.num_residual * k + 2 * cost_spec.num_term
+                + k)
+  return nbytes, k * (t_hor * per_step + 1)
+
+
+def chol_work(n, k):
+  """(bytes moved once, float32 operations) of one batched Cholesky solve:
+  the lower triangle of A (n, n, K) and b (n, K) read once, x written once
+  (an SPD solve needs no more: the kernel never reads the upper triangle,
+  whose entries are rows of K floats of their own); the operations are
+  those the plain version executes for one system, times K."""
+  from mujoco_mpc_tpu_torch.ops import cholesky
+  a1 = torch.eye(n)[..., None] * 2.0
+  b1 = torch.ones((n, 1))
+  flops = count_flops(lambda: cholesky.chol_solve_lanes_plain(a1, b1))
+  return 4 * (n * (n + 1) // 2 + 2 * n) * k, flops * k
+
+
+def spd_batch(n, k, rng, device):
+  """K random SPD systems on the lane layout: A (n, n, K), b (n, K)."""
+  g = rng.standard_normal((k, n, n))
+  a = np.einsum("kij,klj->kil", g, g) + n * np.eye(n)[None]
+  b = rng.standard_normal((n, k))
+  return (torch.as_tensor(np.ascontiguousarray(
+      np.moveaxis(a, 0, -1)).astype(np.float32)).to(device),
+          torch.as_tensor(b.astype(np.float32)).to(device))
+
+
+def host_ms(fn, reps=3):
+  """Host-clock milliseconds of fn() (a plain version, launch-bound), after
+  one warm call."""
+  fn()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def run_path(planner, d0, iterations, counters, gen=None,
+             around_last=contextlib.nullcontext):
+  """1 warm-up iteration, then `iterations` chained ones timed with CUDA
+  events with every kernel's launch count set to 0 just before and read
+  just after; then one more iteration, inside `around_last()`, with its
+  synchronising calls counted. Returns (infos, ms per iteration, launches,
+  syncs)."""
+  planner.optimize(gen, d0)
+  torch.cuda.synchronize()
+  for mod in counters.values():
+    mod.launch_count = 0
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  infos = [planner.optimize(gen, d0) for _ in range(iterations)]
+  end.record()
+  torch.cuda.synchronize()
+  launches = {name: mod.launch_count for name, mod in counters.items()}
+  ms = start.elapsed_time(end) / iterations
+  with around_last():
+    _, syncs = count_syncs(lambda: planner.optimize(gen, d0))
+    torch.cuda.synchronize()
+  return infos, ms, launches, syncs
+
+
 def main():
   # ---- 1. device ----
   if not torch.cuda.is_available():
@@ -291,10 +426,12 @@ def main():
        torch=torch.__version__, cuda=torch.version.cuda)
 
   import mujoco_mpc_tpu_torch  # noqa: F401  (sets TF32 off)
-  from mujoco_mpc_tpu_torch.ops import (_build, riccati_lane, sampling_lane,
-                                        step_lane)
+  from mujoco_mpc_tpu_torch.ops import (_build, cholesky, riccati_lane,
+                                        sampling_lane, scoring, step_lane)
   from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
-  from mujoco_mpc_tpu_torch.planners import ilqg, sampling
+  from mujoco_mpc_tpu_torch.planners import (cross_entropy, ilqg, ilqs,
+                                             robust, sample_gradient,
+                                             sampling)
   from mujoco_mpc_tpu_torch.spline import Interpolation
   from mujoco_mpc_tpu_torch.tasks import registry
 
@@ -345,6 +482,26 @@ def main():
       128, 32, ILQG_HORIZON, qp_iters, 0)
   riccati[("swimmer_h201", 0)] = riccati_lane.build_backward_kernel(
       sw_ndx, sw.nu, 201, qp_iters, 0)
+  # the rest of the sampling family (phase 6): Swimmer at its own horizon
+  # (201 steps) in cost-sum mode with fluid (robust's clean batch, iLQS's
+  # sampler) and in feedback mode (iLQS's iLQG), Cartpole at its own
+  # configuration in states mode (the lane planner's third branch); the
+  # planners find them built
+  swim_cfg = sampling.make_config(swim)
+  cart_cfg = sampling.make_config(cart)
+  assert (swim_cfg.horizon, swim_cfg.num_spline_points,
+          swim_cfg.num_trajectory) == (201, 10, 10)
+  kernels["swimmer_cost_sums_h201"] = step_lane.build_rollout_kernel(
+      sw, swim_cfg.horizon, swim_cfg.num_spline_points, residual=swim_spec,
+      naux=swim_spec["naux"], record_states=False,
+      cost_terms=tuple(zip(swim.cost_spec.norm_types, swim.cost_spec.dims)))
+  kernels["swimmer_feedback_h201"] = step_lane.build_rollout_kernel(
+      sw, swim_cfg.horizon, 1, residual=swim_spec, naux=swim_spec["naux"],
+      record_states=True, feedback=True)
+  kernels["cartpole_states_own_config"] = step_lane.build_rollout_kernel(
+      cart.plan_model, cart_cfg.horizon, cart_cfg.num_spline_points)
+  score_tasks = {"quadruped": quad, "swimmer": swim, "cartpole": cart}
+  chol_ns = sorted({n for n, _ in CHOL_SIZES})
   t0 = time.perf_counter()
   procs = {name: _build.start_build("lane_rollout.cu", k.build_defines())
            for name, k in kernels.items()}
@@ -352,6 +509,13 @@ def main():
       f"riccati_{name}_reg{rt}": _build.start_build(
           "riccati_backward.cu", k.build_defines())
       for (name, rt), k in riccati.items()})
+  procs.update({
+      f"score_fused_{name}": _build.start_build(
+          "score_fused.cu", scoring.build_defines(t.cost_spec))
+      for name, t in score_tasks.items()})
+  procs.update({
+      f"chol_solve_lanes_n{n}": _build.start_build(
+          "chol_solve_lanes.cu", cholesky.build_defines(n)) for n in chol_ns})
   for name, (path, proc) in procs.items():
     _build.finish_build(proc)
   build_s = time.perf_counter() - t0
@@ -767,6 +931,69 @@ def main():
           (share_q, share_qc)
       assert med_q <= 3.0 * med_qc + TOL_STEP_MEDIAN, (med_q, med_qc)
 
+  # (j) fused scoring kernel: random residual rows at each ported task's
+  # cost, K=4096 candidates, horizon 36 (the quadruped's is the size for
+  # the time and the bound); no single PyTorch call computes the function
+  score_rows, err_score = [], 0.0
+  for name, task in score_tasks.items():
+    cs = task.cost_spec
+    res = torch.as_tensor(rng.standard_normal(
+        (HORIZON, cs.num_residual, K_MAIN)).astype(np.float32)).to(device)
+    scorer = scoring.make_scorer(cs, device)
+    assert scorer.route == "kernel", scorer.route
+    got = scorer(res)
+    want = scoring.score_reference(res.permute(2, 0, 1), cs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    within = bool(((got - want).abs() <= TOL_SCORE +
+                   TOL_SCORE * want.abs()).all())
+    row = dict(task=name, T=HORIZON, nr=cs.num_residual, K=K_MAIN,
+               max_abs_err=err, within_tol=within)
+    if name == "quadruped":
+      sb, so = score_work(cs, HORIZON, K_MAIN)
+      score_ms = time_cuda(lambda: scorer(res), 50)
+      score_plain_ms = time_cuda(
+          lambda: scoring.score_reference(res.permute(2, 0, 1), cs), 20)
+      score_bytes_ms = sb / H100_BYTES_PER_S * 1e3
+      score_ops_ms = so / H100_F32_FLOPS * 1e3
+      row.update(kernel_ms=score_ms, plain_ms=score_plain_ms, bytes=sb,
+                 flops=so, bytes_ms=score_bytes_ms, ops_ms=score_ops_ms,
+                 library_ms=None)
+    score_rows.append(row)
+    err_score = max(err_score, err)
+    assert got.shape == (K_MAIN,) and within, row
+  emit("kernels", case="score_fused", cases=score_rows, tol=TOL_SCORE,
+       card=card)
+
+  # (k) batched Cholesky solve at the sizes of the JAX suite, at Swimmer's
+  # (the robust path hands it n = 8, K = 16) and at n = 18, K = 4096 (the
+  # size for the time and the bound), beside torch.linalg.solve on the same
+  # systems (the library call, timed here only)
+  chol_rows, err_chol = [], 0.0
+  for n, k in CHOL_SIZES:
+    a, b = spd_batch(n, k, rng, device)
+    x = cholesky.chol_solve_lanes(a, b)
+    xp = cholesky.chol_solve_lanes_plain(a, b)
+    torch.cuda.synchronize()
+    err = float((x - xp).abs().max())
+    within = bool(((x - xp).abs() <= TOL_CHOL + TOL_CHOL * xp.abs()).all())
+    am, bm = a.permute(2, 0, 1).contiguous(), b.T.contiguous()[..., None]
+    cb, co = chol_work(n, k)
+    row = dict(n=n, K=k, max_abs_err=err, within_tol=within,
+               kernel_ms=time_cuda(lambda: cholesky.chol_solve_lanes(a, b),
+                                   50),
+               library_ms=time_cuda(lambda: torch.linalg.solve(am, bm), 20),
+               plain_ms=host_ms(lambda: cholesky.chol_solve_lanes_plain(
+                   a, b)),
+               bytes=cb, flops=co, bytes_ms=cb / H100_BYTES_PER_S * 1e3,
+               ops_ms=co / H100_F32_FLOPS * 1e3)
+    chol_rows.append(row)
+    err_chol = max(err_chol, err)
+    assert x.shape == (n, k) and within, row
+  chol_main = chol_rows[-1]
+  emit("kernels", case="chol_solve_lanes", cases=chol_rows, tol=TOL_CHOL,
+       card=card)
+
   # ---- 4. main path: the planner a user builds, on the card ----
   config = sampling.SamplingConfig(
       num_trajectory=K_MAIN, num_spline_points=SPLINE_POINTS,
@@ -787,7 +1014,7 @@ def main():
     infos.append(planner.optimize(gen, d0))
   end.record()
   torch.cuda.synchronize()
-  launches = step_lane.launch_count
+  launches = main_launches = step_lane.launch_count
   iter_ms = start.elapsed_time(end) / ITERATIONS
   assert launches == ITERATIONS, (launches, ITERATIONS)
   nominal = [float(i["nominal_return"]) for i in infos]
@@ -917,29 +1144,306 @@ def main():
     riccati_lane.build_backward_kernel = build_backward
     step_lane.build_rollout_kernel = build_rollout
   t0 = time.perf_counter()
-  checked_infos = [checked.optimize(None, d0) for _ in range(ILQG_ITERATIONS)]
+  checked_infos = [checked.optimize(None, d0)
+                   for _ in range(ILQG_CHECKED_ITERATIONS)]
   torch.cuda.synchronize()
   emit("ilqg_path", case="kernels_on_the_planners_inputs",
-       iterations=ILQG_ITERATIONS, seconds=time.perf_counter() - t0,
+       iterations=ILQG_CHECKED_ITERATIONS, seconds=time.perf_counter() - t0,
        riccati=riccati_checks, rollout_max_abs_err=rollout_errs,
        best_return=[float(i["best_return"]) for i in checked_infos],
        tol_riccati_abs=TOL_RICCATI_ABS, tol_riccati_rel=TOL_RICCATI_REL,
        tol_vs_plain32=TOL_RICCATI_VS_PLAIN32, tol_states=TOL_STATES_SWIMMER)
-  assert len(riccati_checks) == sum(sweeps), (len(riccati_checks), sweeps)
-  assert len(rollout_errs) == 2 * ILQG_ITERATIONS
+  assert len(riccati_checks) == sum(sweeps[:ILQG_CHECKED_ITERATIONS]), \
+      (len(riccati_checks), sweeps)
+  assert len(rollout_errs) == 2 * ILQG_CHECKED_ITERATIONS
   assert all(r["passes"] for r in riccati_checks), riccati_checks
   assert max(rollout_errs) <= TOL_STATES_SWIMMER, rollout_errs
-  assert np.allclose([float(i["best_return"]) for i in checked_infos], best,
-                     rtol=1e-5)
+  assert np.allclose([float(i["best_return"]) for i in checked_infos],
+                     best[:ILQG_CHECKED_ITERATIONS], rtol=1e-5)
 
-  # ---- 6. summary lines ----
+  # ---- 6. the rest of the sampling family, each on its own path ----
+  counters = dict(rollout=step_lane, riccati=riccati_lane, scoring=scoring,
+                  cholesky=cholesky)
+  path_launches = {}
+
+  def sampling_checks(infos, nominal_of, best_is_min=True):
+    """No NaN return (poisoned candidates read 1e6), a finite best; where
+    the winner is the argmin of the returns, the best no worse than the
+    nominal (candidate 0), every iteration."""
+    best = [float(i["best_return"]) for i in infos]
+    nominal = [float(nominal_of(i)) for i in infos]
+    for i, info in enumerate(infos):
+      r = info["returns"]
+      assert not bool(torch.isnan(r).any()), "NaN return"
+      assert not best_is_min or best[i] <= nominal[i] + 1e-6 * abs(
+          nominal[i]), (i, best[i], nominal[i])
+    assert best[-1] < 1e6, best
+    return best, nominal, [int((i["returns"] >= 1e6).sum()) for i in infos]
+
+  # (a) cross-entropy on Quadruped Flat at the flagship's width, lane route
+  cem_cfg = cross_entropy.make_config(quad).replace(
+      num_trajectory=K_MAIN, num_spline_points=SPLINE_POINTS,
+      horizon=HORIZON, n_elite=max(K_MAIN // 10, 2))
+  planner = cross_entropy.CrossEntropyPlanner(
+      quad, cem_cfg, lane=True, device=device, contact_types=(GEOM_SPHERE,))
+  assert planner.routes == dict(rollouts="rollout_kernel",
+                                scoring="rollout_kernel"), planner.routes
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  infos, cem_ms, launches, syncs = run_path(
+      planner, quad.make_data(), CEM_ITERATIONS, counters, gen)
+  best, nominal, poisoned = sampling_checks(infos, lambda i: i["returns"][0])
+  path_launches["cem_path"] = launches
+  emit("cem_path", task="Quadruped Flat", K=K_MAIN, H=HORIZON,
+       P=SPLINE_POINTS, n_elite=cem_cfg.n_elite,
+       std_initial=cem_cfg.std_initial, std_min=cem_cfg.std_min,
+       iterations=CEM_ITERATIONS, ms_per_iteration=cem_ms,
+       rollouts_per_s=K_MAIN / (cem_ms * 1e-3), launches=launches,
+       host_syncs_per_iteration=syncs, routes=planner.routes,
+       best_return=best, nominal_return=nominal,
+       elite_avg_return=[float(i["elite_avg_return"]) for i in infos],
+       poisoned_per_iteration=poisoned, card=card)
+  assert launches == dict(rollout=CEM_ITERATIONS, riccati=0, scoring=0,
+                          cholesky=0), launches
+
+  # (b) sample-gradient, same task and size: the noisy batch (K-4) and the
+  # 4 gradient candidates, two launches of one build an iteration
+  sg_cfg = sample_gradient.make_config(quad).replace(
+      num_trajectory=K_MAIN, num_spline_points=SPLINE_POINTS,
+      horizon=HORIZON, exploration=EXPLORATION)
+  planner = sample_gradient.SampleGradientPlanner(
+      quad, sg_cfg, lane=True, device=device, contact_types=(GEOM_SPHERE,))
+  infos, sg_ms, launches, syncs = run_path(
+      planner, quad.make_data(), SG_ITERATIONS, counters, gen)
+  best, nominal, poisoned = sampling_checks(
+      infos, lambda i: i["nominal_return"])
+  path_launches["sample_gradient_path"] = launches
+  emit("sample_gradient_path", task="Quadruped Flat", K=K_MAIN, H=HORIZON,
+       P=SPLINE_POINTS, num_gradient=sg_cfg.num_gradient,
+       iterations=SG_ITERATIONS, ms_per_iteration=sg_ms,
+       rollouts_per_s=K_MAIN / (sg_ms * 1e-3), launches=launches,
+       host_syncs_per_iteration=syncs, routes=planner.routes,
+       best_return=best, nominal_return=nominal,
+       from_gradient=[bool(i["from_gradient"]) for i in infos],
+       poisoned_per_iteration=poisoned, card=card)
+  assert launches == dict(rollout=2 * SG_ITERATIONS, riccati=0, scoring=0,
+                          cholesky=0), launches
+
+  # (c) robust sampling on Swimmer at the task's own configuration: the K
+  # clean candidates on the rollout kernel (cost sums, fluid), the N x M
+  # noisy re-rolls on the pipeline physics (batched Cholesky kernel at every
+  # solve, fused scoring kernel for the returns)
+  planner = robust.RobustPlanner(swim, device=device)
+  rcfg = planner.r_config
+  assert planner.routes == dict(
+      clean_rollouts="rollout_kernel", clean_scoring="rollout_kernel",
+      noisy_rollouts="pipeline", noisy_scoring="kernel",
+      spd_solve="kernel"), planner.routes
+  d0_s = swim.make_data()
+  # the last (untimed, uncounted) iteration captures the fused scoring
+  # launch and every 100th Cholesky launch, to hold both kernels against
+  # their plain versions on the robust path's own inputs below
+  captured = dict(score=[], chol=[], chol_calls=0)
+  launch_score, launch_chol = scoring._launch, cholesky._launch
+
+  def capture_score(res, cs):
+    captured["score"].append((res.clone(), cs))
+    return launch_score(res, cs)
+
+  def capture_chol(a, b):
+    if captured["chol_calls"] % 100 == 0:
+      captured["chol"].append((a.clone(), b.clone()))
+    captured["chol_calls"] += 1
+    return launch_chol(a, b)
+
+  @contextlib.contextmanager
+  def capturing():
+    scoring._launch, cholesky._launch = capture_score, capture_chol
+    try:
+      yield
+    finally:
+      scoring._launch, cholesky._launch = launch_score, launch_chol
+
+  infos, robust_ms, launches, syncs = run_path(
+      planner, d0_s, ROBUST_ITERATIONS, counters, gen, around_last=capturing)
+  # the winner is the most robust of the top N, not the clean argmin
+  best, nominal, _ = sampling_checks(infos, lambda i: i["returns"][0],
+                                     best_is_min=False)
+  n_flat = rcfg.num_candidates * rcfg.num_repetitions
+  noisy_poisoned = [int((i["noisy_returns"] >= 1e6).sum()) for i in infos]
+  path_launches["robust_path"] = launches
+  chol_per_iteration = launches["cholesky"] / ROBUST_ITERATIONS
+  emit("robust_path", task="Swimmer", K=swim_cfg.num_trajectory,
+       H=swim_cfg.horizon, P=swim_cfg.num_spline_points,
+       N=rcfg.num_candidates, M=rcfg.num_repetitions,
+       xfrc_std=rcfg.xfrc_std, xfrc_rate=rcfg.xfrc_rate,
+       iterations=ROBUST_ITERATIONS, ms_per_iteration=robust_ms,
+       launches=launches, cholesky_launches_per_iteration=chol_per_iteration,
+       host_syncs_per_iteration=syncs, routes=planner.routes,
+       best_return=best, nominal_return=nominal,
+       robust_return=[float(i["robust_return"]) for i in infos],
+       noisy_rerolls=n_flat, noisy_poisoned_per_iteration=noisy_poisoned,
+       card=card)
+  assert launches["rollout"] == ROBUST_ITERATIONS, launches
+  assert launches["scoring"] == ROBUST_ITERATIONS, launches
+  assert launches["riccati"] == 0, launches
+  assert chol_per_iteration >= 1 and chol_per_iteration == int(
+      chol_per_iteration), launches
+
+  # the fused scoring and Cholesky kernels on the robust path's own inputs:
+  # first those of the iteration above, at the task's wrench noise, where
+  # most re-rolls blow up (as they do in the JAX package); then those of one
+  # iteration at a wrench noise the re-rolls survive, so that both kernels
+  # are held on sane inputs of the same path over the whole horizon
+  def robust_inputs_check(batch, min_prefix, min_sane, elementwise):
+    assert len(captured["score"]) == 1 and captured["chol"], captured
+    res, cs = captured["score"][0]
+    # rows of a rollout that is blowing up overflow float32 in their squares
+    # (both versions then give inf, whose difference is NaN): compare the
+    # candidates whose rows stay sane, and every candidate over the steps
+    # before the first row that is not
+    sane = (torch.isfinite(res) & (res.abs() < 1e6)).all(dim=1)   # (T, K)
+    alive = sane.all(dim=0)
+    bad_steps = torch.nonzero(~sane.all(dim=1))
+    prefix = int(bad_steps.min()) if len(bad_steps) else res.shape[0]
+    cases = [("sane_candidates", res[:, :, alive])] if bool(alive.any()) \
+        else []
+    cases.append(("sane_prefix", res[:prefix]))
+    score_path = []
+    for what, rows in cases:
+      rows = rows.contiguous()
+      got = scoring._launch(rows, cs)
+      want = scoring.score_reference(rows.permute(2, 0, 1), cs)
+      torch.cuda.synchronize()
+      score_path.append(dict(
+          rows=what, T=rows.shape[0], K=rows.shape[2],
+          max_abs_err=float((got - want).abs().max()),
+          within_tol=bool(((got - want).abs() <= TOL_SCORE +
+                           TOL_SCORE * want.abs()).all())))
+    chol_path = []
+    for a, b in captured["chol"]:
+      # the systems of candidates whose rollout is still finite
+      ok = torch.isfinite(a).all(dim=0).all(dim=0) & \
+          torch.isfinite(b).all(dim=0)
+      if not bool(ok.any()):
+        continue
+      a, b = a[:, :, ok].contiguous(), b[:, ok].contiguous()
+      x = cholesky._launch(a, b)
+      xp = cholesky.chol_solve_lanes_plain(a, b)
+      torch.cuda.synchronize()
+      # relative to each system's solution: the systems of rollouts that
+      # are blowing up are ill conditioned (|x| up to 1e16 seen), and a
+      # backward-stable float32 solve is accurate relative to |x| there
+      err_col = (x - xp).abs().amax(dim=0) / (1.0 + xp.abs().amax(dim=0))
+      chol_path.append(dict(
+          n=a.shape[0], K=a.shape[2], max_abs_err=float((x - xp).abs().max()),
+          max_abs_x=float(xp.abs().max()),
+          max_err_rel_to_solution=float(err_col.max()),
+          elementwise_within_tol=bool(((x - xp).abs() <= TOL_CHOL +
+                                       TOL_CHOL * xp.abs()).all()),
+          within_tol=bool((err_col <= TOL_CHOL).all())))
+    emit("robust_path", case="kernels_on_the_planners_inputs", batch=batch,
+         residual_batch=dict(T=res.shape[0], nr=res.shape[1],
+                             K=res.shape[2], sane_candidates=int(alive.sum()),
+                             sane_prefix_steps=prefix),
+         score_fused=score_path, cholesky_launches=captured["chol_calls"],
+         chol_solve_lanes_checked=len(chol_path),
+         chol_solve_lanes_max_abs_err=max(c["max_abs_err"] for c in chol_path),
+         chol_solve_lanes_max_err_rel_to_solution=max(
+             c["max_err_rel_to_solution"] for c in chol_path),
+         chol_solve_lanes_elementwise_within_tol=sum(
+             c["elementwise_within_tol"] for c in chol_path),
+         chol_solve_lanes_cases=chol_path, tol_score=TOL_SCORE,
+         tol_chol=TOL_CHOL, min_sane_prefix_steps=min_prefix,
+         min_sane_candidates=min_sane, chol_elementwise=elementwise)
+    assert prefix >= min_prefix and int(alive.sum()) >= min_sane, \
+        (prefix, int(alive.sum()))
+    assert all(c["within_tol"] for c in score_path), score_path
+    key = "elementwise_within_tol" if elementwise else "within_tol"
+    assert len(chol_path) >= 5 and all(c[key] for c in chol_path), chol_path
+    return (max(c["max_abs_err"] for c in score_path),
+            max(c["max_abs_err"] for c in chol_path))
+
+  # at the task's noise the re-rolls blow up from step ~20 on (the JAX
+  # package alike, tests/robust_divergence_reading.py): the sane prefix is
+  # held to a length that still spans many steps
+  err_score = max(err_score, robust_inputs_check(
+      dict(xfrc_std=rcfg.xfrc_std, iteration="last of run_path"),
+      min_prefix=ROBUST_MIN_PREFIX, min_sane=0, elementwise=False)[0])
+  sane_cfg = dataclasses.replace(rcfg, xfrc_std=ROBUST_SANE_XFRC)
+  sane_planner = robust.RobustPlanner(swim, r_config=sane_cfg, device=device)
+  captured.update(score=[], chol=[], chol_calls=0)
+  with capturing():
+    info = sane_planner.optimize(gen, d0_s)
+    torch.cuda.synchronize()
+  sane_poisoned = int((info["noisy_returns"] >= 1e6).sum())
+  sane_score_err, sane_chol_err = robust_inputs_check(
+      dict(xfrc_std=ROBUST_SANE_XFRC, iteration="one, fresh planner",
+           noisy_poisoned=sane_poisoned),
+      min_prefix=ROBUST_MIN_PREFIX, min_sane=n_flat - ROBUST_SANE_SLACK,
+      elementwise=True)
+  err_score = max(err_score, sane_score_err)
+  err_chol = max(err_chol, sane_chol_err)
+
+  # (d) iLQS on Swimmer: the lane sampler at the task's configuration, then
+  # iLQG at the sampler's horizon (201) with the feedback rollouts and the
+  # Riccati kernel
+  planner = ilqs.ILQSPlanner(swim, device=device)
+  assert planner.routes == dict(
+      sampler="lane", sampler_rollouts="rollout_kernel",
+      sampler_scoring="rollout_kernel", ilqg_line_search="kernel",
+      ilqg_backward="kernel"), planner.routes
+  infos, ilqs_ms, launches, syncs = run_path(
+      planner, d0_s, ILQS_ITERATIONS, counters, gen)
+  path_launches["ilqs_path"] = launches
+  readbacks = [i["host_readbacks"] for i in infos]
+  emit("ilqs_path", task="Swimmer", H=swim_cfg.horizon,
+       K=swim_cfg.num_trajectory, iterations=ILQS_ITERATIONS,
+       ms_per_iteration=ilqs_ms, launches=launches,
+       host_readbacks_per_iteration=readbacks,
+       host_syncs_per_iteration=syncs, routes=planner.routes,
+       best_return=[i["best_return"] for i in infos],
+       sampling_return=[i["sampling_return"] for i in infos],
+       ilqg_return=[i["ilqg_return"] for i in infos],
+       active=[i["active"] for i in infos], card=card)
+  assert launches["rollout"] == 3 * ILQS_ITERATIONS, launches
+  assert launches["riccati"] >= ILQS_ITERATIONS, launches
+  assert launches["scoring"] == 0 and launches["cholesky"] == 0, launches
+  assert all(np.isfinite(i["best_return"]) and i["best_return"] < 1e6
+             for i in infos), infos
+
+  # (e) the lane planner on Cartpole (no in-kernel residual): the rollout
+  # kernel records states, the task maps them to residual rows, the fused
+  # scoring kernel makes the returns
+  planner = sampling_lane.LaneSamplingPlanner(cart, device=device)
+  assert planner.routes == dict(rollouts="rollout_kernel",
+                                scoring="kernel"), planner.routes
+  infos, cart_ms, launches, syncs = run_path(
+      planner, cart.make_data(), CARTPOLE_ITERATIONS, counters, gen)
+  best, nominal, poisoned = sampling_checks(
+      infos, lambda i: i["nominal_return"])
+  path_launches["cartpole_sampling_path"] = launches
+  emit("cartpole_sampling_path", task="Cartpole", K=cart_cfg.num_trajectory,
+       H=cart_cfg.horizon, P=cart_cfg.num_spline_points,
+       iterations=CARTPOLE_ITERATIONS, ms_per_iteration=cart_ms,
+       launches=launches, host_syncs_per_iteration=syncs,
+       routes=planner.routes, best_return=best, nominal_return=nominal,
+       card=card)
+  assert launches == dict(rollout=CARTPOLE_ITERATIONS, riccati=0,
+                          scoring=CARTPOLE_ITERATIONS, cholesky=0), launches
+  for i in range(1, CARTPOLE_ITERATIONS):
+    assert nominal[i] <= nominal[i - 1] * (1 + 1e-6), (i, nominal)
+
+  # ---- 7. summary lines ----
   csrc = "mujoco_mpc_tpu_torch/ops/csrc/"
   print(json.dumps({"kernels": [{
       "name": "step_lane.rollout",
       "route": "cuda",
       "source": csrc + "lane_rollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/step_lane.py:184",
-      "launches": launches,
+      "launches": main_launches,
+      "launches_by_path": dict(
+          main_path=main_launches,
+          **{k: v["rollout"] for k, v in path_launches.items()}),
       "max_abs_err": err_ret,
       "ms": kernel_ms,
       "plain_ms": plain_ms,
@@ -964,6 +1468,10 @@ def main():
       "source": csrc + "riccati_backward.cu",
       "replaces": "mujoco_mpc_tpu/ops/riccati_lane.py:58",
       "launches": riccati_launches,
+      "launches_by_path": dict(
+          ilqg_path=riccati_launches,
+          **{k: v["riccati"] for k, v in path_launches.items()
+             if v["riccati"]}),
       "max_abs_err": err_riccati,
       "ms": riccati_ms,
       "plain_ms": riccati_plain_ms,
@@ -971,6 +1479,36 @@ def main():
       "bound_by": "bytes" if riccati_bytes_ms >= riccati_ops_ms
                   else "operations",
       "library_ms": None,
+  }, {
+      "name": "scoring.score_fused",
+      "route": "cuda",
+      "source": csrc + "score_fused.cu",
+      "replaces": "mujoco_mpc_tpu/ops/scoring.py:47",
+      "launches": sum(v["scoring"] for v in path_launches.values()),
+      "launches_by_path": {k: v["scoring"] for k, v in path_launches.items()
+                           if v["scoring"]},
+      "max_abs_err": err_score,
+      "ms": score_ms,
+      "plain_ms": score_plain_ms,
+      "bound_ms": max(score_bytes_ms, score_ops_ms),
+      "bound_by": "bytes" if score_bytes_ms >= score_ops_ms
+                  else "operations",
+      "library_ms": None,
+  }, {
+      "name": "cholesky.chol_solve_lanes",
+      "route": "cuda",
+      "source": csrc + "chol_solve_lanes.cu",
+      "replaces": "mujoco_mpc_tpu/ops/cholesky.py:66",
+      "launches": sum(v["cholesky"] for v in path_launches.values()),
+      "launches_by_path": {k: v["cholesky"] for k, v in path_launches.items()
+                           if v["cholesky"]},
+      "max_abs_err": err_chol,
+      "ms": chol_main["kernel_ms"],
+      "plain_ms": chol_main["plain_ms"],
+      "bound_ms": max(chol_main["bytes_ms"], chol_main["ops_ms"]),
+      "bound_by": "bytes" if chol_main["bytes_ms"] >= chol_main["ops_ms"]
+                  else "operations",
+      "library_ms": chol_main["library_ms"],
   }]}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {

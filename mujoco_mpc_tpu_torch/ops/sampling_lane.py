@@ -4,7 +4,8 @@ One planner iteration = candidate generation + ONE kernel call rolling out
 all candidates + scoring + argmin. `make_lane_returns_fn` is the shared
 candidate scorer ((K, P, nu) node sets -> (K,) returns); predictive
 sampling (`make_lane_optimize_fn` / `LaneSamplingPlanner`) rides it, and
-so will the other sampling-family planners. Tasks opt in by implementing
+so do cross-entropy, sample-gradient, robust (its clean batch) and iLQS
+(its sampler). Tasks opt in by implementing
 `lane_residual_spec()` (in-kernel residual) or
 `residual_from_rollout(states, ctrls, times, params)` mapping the
 kernel's raw (H, nq+nv, K) output to (H, nr, K) residuals.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch import spline as spline_lib
-from mujoco_mpc_tpu_torch.ops import step_lane
+from mujoco_mpc_tpu_torch.ops import scoring, step_lane
 from mujoco_mpc_tpu_torch.physics.model import check_device
 from mujoco_mpc_tpu_torch.planners import sampling
 
@@ -43,7 +44,14 @@ def make_lane_returns_fn(task, config, solver_iters=None,
      cost needs the per-step transform and keeps the residual-row output.
   2. `residual_from_rollout(states, ctrls, times, params)` — the residual
      is reconstructed from the raw (H, nq+nv, K) states (tasks whose cost
-     needs no FK).
+     needs no FK) and scored by ONE launch of the fused scoring kernel
+     (ops/scoring.py; its gate as in `make_scorer`).
+
+  `returns_fn.routes["scoring"]` says where the rows become returns:
+  "rollout_kernel" (cost sums inside the rollout kernel), "kernel" (the
+  fused scoring kernel) or "plain" (the cost as torch ops: a risk-sensitive
+  cost on an in-kernel residual, whose rows the fused kernel does not
+  score — its own gate).
   """
   m = getattr(task, "plan_model", task.model)
   if config.interp != spline_lib.Interpolation.ZERO:
@@ -66,6 +74,12 @@ def make_lane_returns_fn(task, config, solver_iters=None,
     cost_terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
   kw = dict(contact_types=contact_types, contact_geoms=contact_geoms,
             solver_iters=solver_iters, solver_ls_iters=solver_ls_iters)
+  scorer = None
+  if spec is None:
+    scorer = scoring.make_scorer(task.cost_spec, m.qpos0.device)
+    route = scorer.route
+  else:
+    route = "rollout_kernel" if cost_terms is not None else "plain"
   if spec is not None:
     # the planner only needs residual rows (or their sums) and the final
     # state's finiteness
@@ -77,7 +91,7 @@ def make_lane_returns_fn(task, config, solver_iters=None,
   h = float(m.opt.timestep)
   node_of = torch.as_tensor(np.array(
       [min(int(t * p / max(horizon - 1, 1)), p - 1)
-       for t in range(horizon)]))
+       for t in range(horizon)])).to(m.qpos0.device)
 
   def returns_fn(candidates, d0, residual_params=None, cost_spec=None):
     """(K, P, nu) candidate node sets -> (K,) returns (1e6 on
@@ -114,17 +128,17 @@ def make_lane_returns_fn(task, config, solver_iters=None,
       states = kernel(qpos0, qvel0, values_lane)            # (H, nq+nv, K)
       times = d0.time + h * torch.arange(horizon, dtype=dtype,
                                          device=candidates.device)
-      ctrls = candidates[:, node_of.to(candidates.device), :]  # (K, H, nu)
+      ctrls = candidates.index_select(1, node_of)           # (K, H, nu)
       ctrls = ctrls.movedim(0, -1)                          # (H, nu, K)
       residuals = task.residual_from_rollout(states, ctrls, times,
-                                             residual_params)
-      costs = cost_spec.cost(residuals.movedim(1, -1))      # (H, K)
-      returns = torch.mean(costs, dim=0)
+                                             residual_params)  # (H, nr, K)
+      returns = scorer(residuals, cost_spec)
       final_state = states[-1]
     return torch.where(torch.all(torch.isfinite(final_state), dim=0),
                        returns, torch.full_like(returns, 1e6))
 
   returns_fn.kernel = kernel
+  returns_fn.routes = dict(rollouts="rollout_kernel", scoring=route)
   return returns_fn
 
 
@@ -185,6 +199,7 @@ class LaneSamplingPlanner:
     self.m = getattr(task, "plan_model", task.model)
     self.config = config or sampling.make_config(task)
     self._optimize = make_lane_optimize_fn(task, self.config, **kernel_kw)
+    self.routes = dict(self._optimize.returns_fn.routes)
     self.policy = sampling.initial_policy(self.m, self.config, device)
     self.last_info = None
 

@@ -141,7 +141,7 @@ def solve(m: Model, d: Data) -> Data:
     ma = mass @ (a - a0)
     grad = ma + j.transpose(-1, -2) @ g
     h = mass + (j.transpose(-1, -2) * hw) @ j + 1e-8 * eye
-    p = -S.chol_solve(S.cholesky(h), grad)
+    p = -S.spd_solve(m, h, grad)
 
     # Safeguarded exact line search on the piecewise-quadratic phi(t). phi
     # is CONVEX, so phi'(t) is monotone nondecreasing: bracket the root of

@@ -138,8 +138,7 @@ def euler(m: Model, d: Data) -> Data:
   if m.dev["has_damping"]:
     # (M + h*diag(damping)) qacc' = qfrc_smooth + qfrc_constraint
     mh = d.qM + m.opt.timestep * torch.diag(m.dof_damping)
-    qacc = S.chol_solve(S.cholesky(mh),
-                        d.qfrc_smooth + d.qfrc_constraint)
+    qacc = S.spd_solve(m, mh, d.qfrc_smooth + d.qfrc_constraint)
   else:
     qacc = d.qacc
   return _advance(m, d, qacc, d.act_dot)

@@ -21,8 +21,7 @@ def kinematics(m: Model, d: Data) -> Data:
   qpos = d.qpos
   nb = m.nbody
   zero3 = torch.zeros(3, dtype=qpos.dtype, device=qpos.device)
-  ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=qpos.dtype,
-                       device=qpos.device)
+  ident = mm.identity_quat(qpos.dtype, qpos.device)
   xpos = [zero3] * nb
   xquat = [ident] * nb
   xanchor = [zero3] * m.njnt

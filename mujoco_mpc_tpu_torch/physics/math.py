@@ -47,10 +47,16 @@ def neg_quat(q: torch.Tensor) -> torch.Tensor:
   return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def identity_quat(dtype, device) -> torch.Tensor:
+  """[1, 0, 0, 0], filled on the device: a tensor literal would be a copy
+  from host memory, which synchronises the stream on every call."""
+  return torch.cat([torch.ones(1, dtype=dtype, device=device),
+                    torch.zeros(3, dtype=dtype, device=device)])
+
+
 def normalize_quat(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
   n = norm(q, keepdim=True)
-  ident = torch.zeros_like(q) + torch.tensor(
-      [1.0, 0.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+  ident = torch.zeros_like(q) + identity_quat(q.dtype, q.device)
   return torch.where(n > eps, q / torch.clamp(n, min=eps), ident)
 
 

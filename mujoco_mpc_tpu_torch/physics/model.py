@@ -317,6 +317,11 @@ class Model:
   # the joint-limit rows' constants `lim_*` (two rows per limited joint),
   # and two host booleans `has_damping` / `has_frictionloss`
   dev: Any = None
+  # how the pipeline physics solves its SPD systems (physics/smooth.py
+  # spd_solve): "library" (the library Cholesky, differentiable: the
+  # derivative sweep) or "kernel" (the batched Cholesky kernel
+  # ops/cholesky.py, set by the batched rollouts of rollout.py)
+  solve_route: str = "library"
 
   def replace(self, **kw) -> "Model":
     return dataclasses.replace(self, **kw)

@@ -26,6 +26,10 @@ DSBL_GRAVITY = 64
 DSBL_CLAMPCTRL = 128
 DSBL_ACTUATION = 1024
 
+# Model.solve_route values (spd_solve)
+SOLVE_LIBRARY = "library"
+SOLVE_KERNEL = "kernel"
+
 
 def crb(m: Model, d: Data) -> Data:
   """Composite-rigid-body: dense joint-space mass matrix qM."""
@@ -46,7 +50,10 @@ def cholesky(a: torch.Tensor) -> torch.Tensor:
 
 
 def factor_m(m: Model, d: Data) -> Data:
-  """Dense Cholesky factorization of qM."""
+  """Dense Cholesky factorization of qM (the kernel route factors at every
+  solve instead)."""
+  if m.solve_route == SOLVE_KERNEL:
+    return d
   return d.replace(qLD=cholesky(d.qM))
 
 
@@ -57,8 +64,22 @@ def chol_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
                                        upper=True)[:, 0]
 
 
+def spd_solve(m: Model, a: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+  """Solve a x = rhs for an SPD matrix a by the model's route: the library
+  Cholesky (differentiable), or the batched Cholesky kernel
+  (ops/cholesky.py; under `torch.func.vmap` one launch for the whole batch,
+  on CPU tensors its plain version). The kernel clamps the diagonal at 1e-10
+  where the library gives NaN for a matrix that is not positive definite."""
+  if m.solve_route == SOLVE_KERNEL:
+    from mujoco_mpc_tpu_torch.ops import cholesky as lane_cholesky
+    return lane_cholesky.spd_solve(a, rhs)
+  return chol_solve(cholesky(a), rhs)
+
+
 def solve_m(m: Model, d: Data, rhs: torch.Tensor) -> torch.Tensor:
-  """Solve qM x = rhs using the cached Cholesky factor."""
+  """Solve qM x = rhs (the cached Cholesky factor on the library route)."""
+  if m.solve_route == SOLVE_KERNEL:
+    return spd_solve(m, d.qM, rhs)
   return chol_solve(d.qLD, rhs)
 
 

@@ -3,8 +3,8 @@
 A fixed number of nodes on a uniform time grid (t0 + k*dt), so sampling is
 a gather + blend with no data-dependent shapes. Interpolation semantics
 (zero/linear/cubic with finite-difference Hermite slopes, endpoint
-clamping) follow the JAX package's spline.py. `fit` and the interpolation
-operators arrive with the planners that need them.
+clamping) follow the JAX package's spline.py. `interpolation_matrix` and
+`fit` turn an action trajectory back into spline nodes (iLQS).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
 
 
@@ -112,3 +113,64 @@ def slide(policy: SplinePolicy, new_t0) -> SplinePolicy:
   return policy.replace(
       t0=policy.t0 + k.to(values.dtype) * policy.dt,
       values=values.index_select(-2, idx))
+
+
+def slope_matrix(dt, num_nodes: int, dtype=torch.float32,
+                 device="cpu") -> torch.Tensor:
+  """S with slopes = S @ values: the finite-difference Hermite slope rule
+  (_slopes) as a (P, P) linear operator."""
+  p = num_nodes
+  pattern = np.zeros((p, p), np.float32)
+  if p >= 2:
+    pattern[0, :2] = (-1.0, 1.0)
+    pattern[p - 1, p - 2:] = (-1.0, 1.0)
+    for i in range(1, p - 1):
+      pattern[i, i - 1], pattern[i, i + 1] = -0.5, 0.5
+  inv = 1.0 / torch.clamp(torch.as_tensor(dt, dtype=dtype, device=device),
+                          min=1e-10)
+  return torch.as_tensor(pattern).to(device=device, dtype=dtype) * inv
+
+
+def interpolation_matrix(t0, dt, num_nodes: int, times: torch.Tensor,
+                         interp: int) -> torch.Tensor:
+  """Linear operator M with u(times[i]) = M[i] @ values (per action dim):
+  all three interpolations are exactly linear in the node values (cubic
+  because the Hermite slopes are, `slope_matrix`)."""
+  p = num_nodes
+  dtype, dev = times.dtype, times.device
+  s = (times - t0) / torch.clamp(torch.as_tensor(dt, dtype=dtype,
+                                                 device=dev), min=1e-10)
+  s = torch.clamp(s, 0.0, p - 1.0)
+  cols = torch.arange(p, device=dev)[None, :]
+  if interp == Interpolation.ZERO:
+    # zero-order hold may land on the LAST node (sample() semantics)
+    lo_z = torch.clamp(torch.floor(s).long(), 0, p - 1)
+    return (cols == lo_z[:, None]).to(dtype)
+  lo = torch.clamp(torch.floor(s).long(), 0, max(p - 2, 0))
+  hi = torch.clamp(lo + 1, max=p - 1)
+  frac = s - lo.to(dtype)
+  e_lo = (cols == lo[:, None]).to(dtype)
+  e_hi = (cols == hi[:, None]).to(dtype)
+  if interp == Interpolation.LINEAR or p < 2:
+    return e_lo * (1.0 - frac)[:, None] + e_hi * frac[:, None]
+  tt = frac
+  c0 = 2 * tt**3 - 3 * tt**2 + 1
+  c1 = (tt**3 - 2 * tt**2 + tt) * dt
+  c2 = -2 * tt**3 + 3 * tt**2
+  c3 = (tt**3 - tt**2) * dt
+  smat = slope_matrix(dt, p, dtype, dev)
+  return (e_lo * c0[:, None] + e_hi * c2[:, None] +
+          c1[:, None] * smat.index_select(0, lo) +
+          c3[:, None] * smat.index_select(0, hi))
+
+
+def fit(actions: torch.Tensor, times: torch.Tensor, t0, dt, num_nodes: int,
+        interp: int) -> torch.Tensor:
+  """Least-squares spline nodes fitting u(times) ~= actions (T, nu): the
+  regularised normal equations, solved by the library (one small solve an
+  iLQS switch, as the JAX package leaves it to its array library)."""
+  m = interpolation_matrix(t0, dt, num_nodes, times, interp)
+  a = m.T @ m + 1e-6 * torch.eye(num_nodes, dtype=actions.dtype,
+                                 device=actions.device)
+  # solve_ex: no status check, so no read-back from the device
+  return torch.linalg.solve_ex(a, m.T @ actions).result

@@ -1,7 +1,8 @@
 """The CUDA sources' arithmetic, run on the CPU.
 
-There is no CUDA compiler where these tests run, but `lane_rollout.cu` and
-`riccati_backward.cu` are plain C++ apart from a handful of CUDA names. With those stood in for by
+There is no CUDA compiler where these tests run, but the kernel sources
+(`lane_rollout.cu`, `riccati_backward.cu`, `score_fused.cu`,
+`chol_solve_lanes.cu`) are plain C++ apart from a handful of CUDA names. With those stood in for by
 `tests/cuda_host_shim/cuda_runtime.h` (one thread at a time in a loop) the
 host compiler builds the very source the card runs, and its output is held
 against the plain PyTorch version. Both run in float64 here (`float`
@@ -26,7 +27,9 @@ import pytest
 import torch
 
 from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import cholesky as tcholesky
 from mujoco_mpc_tpu_torch.ops import riccati_lane as triccati
+from mujoco_mpc_tpu_torch.ops import scoring as tscoring
 from mujoco_mpc_tpu_torch.ops import step_lane as tstep
 from mujoco_mpc_tpu_torch.planners import ilqg as tilqg
 from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
@@ -306,3 +309,81 @@ def test_riccati_source_flags_non_finite_input(tmp_path):
   _, _, out = _run_riccati_host(kern, prob, reg, tmp_path)
   assert float(out[2]) == 1.0
   assert not bool(tilqg.backward_pass(*prob, reg, 6, 0)[3])
+
+
+def test_cuda_source_swimmer_cost_sums_with_fluid_matches_plain(tmp_path):
+  """The clean scoring launch of the robust and iLQS paths on Swimmer: the
+  spline control, the inertia-box fluid forces and the in-kernel residual
+  reduced to per-term cost sums (a specialisation the iLQG path never
+  builds), 12 steps."""
+  pt = tregistry.get_task("Swimmer", device="cpu")
+  m = pt.plan_model
+  spec = pt.lane_residual_spec()
+  cs = pt.cost_spec
+  horizon, p, k = 12, 4, 6
+  kern = tstep.build_rollout_kernel(
+      m, horizon, p, residual=spec, naux=spec["naux"], record_states=False,
+      cost_terms=tuple(zip(cs.norm_types, cs.dims)),
+      _table_float=np.float64)
+  defs = kern.build_defines()
+  assert (defs["LR_MODE"], defs["LR_FLUID"], defs["LR_CTRL"]) == (
+      tstep.MODE_COST_SUMS, 1, 0)
+  rng = np.random.default_rng(6)
+  d0 = pt.make_data()
+  qpos = d0.qpos.double()[:, None].repeat(1, k) + _rand(rng, m.nq, k,
+                                                        scale=0.2)
+  qvel = _rand(rng, m.nv, k, scale=0.5)
+  values = torch.as_tensor(rng.uniform(-1.2, 1.2, (p * m.nu, k)))
+  aux = torch.cat([torch.tensor([0.4, -0.3], dtype=torch.float64),
+                   cs.norm_params[:, :2].reshape(-1).double()])
+  aux = aux[:, None].repeat(1, k).contiguous()
+  want = kern.plain(qpos.contiguous(), qvel, values, aux)
+  got = [torch.zeros_like(w) for w in want]
+  _run_host(kern, got, qpos.contiguous(), qvel, values, aux, tmp_path)
+  for g, w in zip(got, want):
+    assert torch.isfinite(w).all()
+    torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("task", ["Quadruped Flat", "Swimmer", "Cartpole"])
+def test_score_fused_source_matches_reference(task, tmp_path):
+  """The fused scoring kernel's source against the plain cost (mean over
+  the horizon of CostSpec.cost), float64, at each ported task's cost."""
+  cs = tregistry.get_task(task, device="cpu").cost_spec
+  cs = cs.replace(weights=cs.weights.double(),
+                  norm_params=cs.norm_params.double())
+  lib = _host_build(tscoring.build_defines(cs), str(tmp_path),
+                    source="score_fused.cu")
+  rng = np.random.default_rng(7)
+  t_hor, k = 9, 5
+  res = torch.as_tensor(rng.standard_normal((t_hor, cs.num_residual, k)))
+  weights = cs.weights.contiguous()
+  p0 = cs.norm_params[:, 0].contiguous()
+  out = torch.zeros(k, dtype=torch.float64)
+  ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+  assert lib.score_fused(ptr(res), ptr(weights), ptr(p0), ptr(out),
+                         ctypes.c_int(t_hor), ctypes.c_int(k), None) == 0
+  want = tscoring.score_reference(res.permute(2, 0, 1), cs)
+  torch.testing.assert_close(out, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("n", [4, 7, 8, 18])
+def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
+  """The batched Cholesky kernel's source against its plain version,
+  float64, on SPD systems (8 is Swimmer's nv, 18 the quadruped's)."""
+  lib = _host_build(tcholesky.build_defines(n), str(tmp_path),
+                    source="chol_solve_lanes.cu")
+  rng = np.random.default_rng(n)
+  k = 9
+  g = rng.standard_normal((k, n, n))
+  a = np.einsum("kij,klj->kil", g, g) + n * np.eye(n)[None]
+  a = torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
+  b = torch.as_tensor(rng.standard_normal((n, k)))
+  x = torch.zeros_like(b)
+  ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+  assert lib.chol_solve_lanes(ptr(a), ptr(b), ptr(x), ctypes.c_int(k),
+                              None) == 0
+  want = tcholesky.chol_solve_lanes_plain(a, b)
+  torch.testing.assert_close(x, want, atol=TOL, rtol=TOL)
+  ref = np.linalg.solve(np.moveaxis(a.numpy(), -1, 0), b.numpy().T[..., None])
+  np.testing.assert_allclose(x.numpy(), ref[..., 0].T, atol=1e-9)
