@@ -8,7 +8,8 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      name and power limit as `nvidia-smi` gives them;
   2. `build`   — compiles every CUDA kernel of the paths below (the
      rollout kernel in its three output modes, in its feedback mode with
-     fluid and in cost-sum mode with fluid, the Riccati kernel at every size
+     fluid, in cost-sum mode with fluid, and the humanoid and quadrotor
+     builds of phase 7, the Riccati kernel at every size
      and regularisation checked here, the fused scoring kernel at each
      ported task's cost, the batched Cholesky kernel at each size checked
      here) from ops/csrc/, all `nvcc` processes side by side, and prints
@@ -55,8 +56,23 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      rollouts and the Riccati kernel) and `cartpole_sampling_path` (the lane
      planner's third branch: recorded states, then the fused scoring
      kernel);
-  7. prints one JSON line describing every kernel, the card line, and
-     `{"ok": true, ...}` as the last line.
+  7. the rollout kernel's capsule/box ground contacts, site transmission
+     and per-step aux rows: `kernels` cases `humanoid_states_step_by_step`
+     (K=512, perturbed poses on the floor, every step repeated by the plain
+     version from the kernel's state beside the nudged control),
+     `humanoid_track_cost_sums`, `humanoid_stand_cost_sums` and
+     `quadrotor_cost_sums` (each path's own build at its shape on its own
+     inputs, returns against the plain version's, times and bound; Track's
+     per-step aux rows) and `quadrotor_site_step_by_step` (site
+     transmission, airborne, asymmetric thrusts); then
+     `humanoid_track_path` (BASELINE config 4: Humanoid Track, K=512, H=25,
+     P=2, 20 chained iterations), `humanoid_stand_path` (K=512, H=25) and
+     `quadrotor_path` (its own configuration: K=30, H=61, P=5), each on the
+     lane planner with one rollout launch and no host synchronisation an
+     iteration;
+  8. prints one JSON line describing every kernel (the rollout kernel by
+     build: main path, feedback, humanoid track, humanoid stand, site), the
+     card line, and `{"ok": true, ...}` as the last line.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
 JAX or the JAX package.
@@ -137,6 +153,15 @@ TOL_CHOL = 2e-3
 CEM_ITERATIONS = SG_ITERATIONS = CARTPOLE_ITERATIONS = 10
 ROBUST_ITERATIONS = ILQS_ITERATIONS = 5
 CHOL_SIZES = ((4, 128), (18, 128), (7, 256), (8, 16), (18, 4096))
+# phase 7: Humanoid Track at BASELINE config 4 (scripts/bench_configs.py:245)
+K_HUMANOID, HORIZON_HUMANOID = 512, 25
+HUMANOID_TRACK_ITERATIONS, HUMANOID_STAND_ITERATIONS = 20, 5
+QUADROTOR_ITERATIONS = 10
+K_QUADROTOR_CHECK = 256
+# one step of the kernel vs its plain version from the same state, absolute
+# (the port's CPU tests hold the plain version to the JAX package's step by
+# the same bars)
+TOL_STEP_QPOS, TOL_STEP_QVEL = 2e-4, 2e-3
 # the robust path's on-path checks: at the task's OU wrench noise (std 0.2)
 # the shortest sane prefix of the 16 re-rolls over the steps (23 and 24 in
 # the CPU reading and a card run); at std 0.05 the re-rolls survive (16 of
@@ -414,6 +439,329 @@ def run_path(planner, d0, iterations, counters, gen=None,
   return infos, ms, launches, syncs
 
 
+def planner_candidates(task, k, p, exploration, rng, device):
+  """(P*nu, K) spline values as the lane planner makes them from its
+  initial policy (mid-range): the nominal in column 0, exploration noise
+  (scaled by half the control range) elsewhere, clipped."""
+  m = task.plan_model
+  lo = m.actuator_ctrlrange[:, 0].cpu().numpy()
+  hi = m.actuator_ctrlrange[:, 1].cpu().numpy()
+  nominal = np.tile(0.5 * (lo + hi), (p, 1)).astype(np.float32)
+  noise = rng.standard_normal((k, p, m.nu)).astype(np.float32)
+  cand = np.clip(nominal[None] + exploration * 0.5 * (hi - lo) * noise,
+                 lo, hi)
+  cand[0] = nominal
+  return torch.as_tensor(cand.reshape(k, p * m.nu).T.copy()).to(device)
+
+
+def lane_aux(task, spec, d0, k, cost_terms):
+  """(naux (+ 2 nterm), K) aux rows as the lane planner tiles them."""
+  aux = spec["make_aux"](d0, task.residual_params)
+  if cost_terms:
+    aux = torch.cat([aux, task.cost_spec.norm_params[:, :2].reshape(-1)])
+  return aux[:, None].repeat(1, k).contiguous()
+
+
+def step_by_step(kern, rec, values, aux, p, nq, nv, gen):
+  """Each step of a recorded rollout but the last (whose outcome the record
+  does not hold) repeated by the plain version from the kernel's own
+  pre-step state, and once more from that state nudged by
+  CONTROL_PERTURBATION (relative): per (step, candidate) pair, whether the
+  next state is within TOL_STEP_QPOS / TOL_STEP_QVEL (absolute), for the
+  kernel and for the control; pairs of rollouts that have blown up are left
+  out."""
+  horizon, _, k = rec.shape
+  nu = values.shape[0] // p
+
+  def nudged(x):
+    return x * (1.0 + CONTROL_PERTURBATION * torch.randn(
+        x.shape, generator=gen, device=x.device))
+
+  def within(a, b):
+    return ((a[:nq] - b[:nq]).abs().amax(dim=0) <= TOL_STEP_QPOS) & \
+        ((a[nq:] - b[nq:]).abs().amax(dim=0) <= TOL_STEP_QVEL)
+
+  ok_k, ok_c, sane, err_q, err_v = [], [], [], [], []
+  for t in range(horizon - 1):
+    node = min(int(t * p / max(horizon - 1, 1)), p - 1)
+    ctrl = values[node * nu:(node + 1) * nu]
+    qp, qv = rec[t, :nq], rec[t, nq:nq + nv]
+    want = torch.cat(kern.step_array(qp, qv, ctrl, t, aux)[:2])
+    ctl = torch.cat(kern.step_array(nudged(qp), nudged(qv), ctrl, t,
+                                    aux)[:2])
+    after = rec[t + 1, :nq + nv]
+    ok_k.append(within(after, want))
+    ok_c.append(within(ctl, want))
+    err_q.append((after[:nq] - want[:nq]).abs().amax(dim=0))
+    err_v.append((after[nq:] - want[nq:]).abs().amax(dim=0))
+    sane.append(torch.isfinite(want).all(dim=0) &
+                (qp.abs().amax(dim=0) < 10.0) & (qv.abs().amax(dim=0) < 100.0))
+  sane = torch.stack(sane)
+  ok_k, ok_c = torch.stack(ok_k)[sane], torch.stack(ok_c)[sane]
+  n = int(sane.sum())
+  share_k, share_c = float(ok_k.float().mean()), float(ok_c.float().mean())
+  # the kernel's share within the tolerances is held to the control's,
+  # less three standard errors of the control's share (sampling noise)
+  slack = 3.0 * float(np.sqrt(max(share_c * (1.0 - share_c), 1e-12) / n))
+  return dict(pairs=n, left_out_pairs=int((~sane).sum()),
+              share_within=share_k, control_share_within=share_c,
+              slack=slack, passes=share_k >= share_c - slack,
+              median_err_qpos=float(torch.stack(err_q)[sane].median()),
+              median_err_qvel=float(torch.stack(err_v)[sane].median()),
+              max_err_qpos=float(torch.stack(err_q)[sane].max()),
+              max_err_qvel=float(torch.stack(err_v)[sane].max()))
+
+
+def kernel_bound(kern, args, outs, steps, k):
+  """(bytes each moved once, float32 operations, bytes ms, operations ms)
+  of one rollout launch: the operations the plain version executes for one
+  step of one candidate (on the CPU; every row is evaluated whatever its
+  gate), times the steps and the candidates."""
+  nbytes = 4 * sum(int(a.numel()) for a in (*args, *outs))
+  q, v, values, aux = [a[:, :1].cpu() for a in args]
+  nu = kern.build_defines()["LR_NU"]
+  flops = count_flops(lambda: kern.step_array(q, v, values[:nu], 0, aux)) \
+      * steps * k
+  return nbytes, flops, nbytes / H100_BYTES_PER_S * 1e3, \
+      flops / H100_F32_FLOPS * 1e3
+
+
+def cost_sums_check(kern, task, spec, d0, values, horizon):
+  """One cost-sum launch of `kern` from d0's state on every candidate of
+  `values`, held against the plain version on the same inputs: the returns
+  (weighted term sums over the horizon) within TOL_RETURN_REL but for a
+  TOL_RETURN_SHARE of candidates, and the best candidate of each (0 is the
+  nominal); the kernel's time (CUDA events), the plain version's (one call,
+  host clock) and the bound. Returns the row to print, which also keys the
+  build's summary entry."""
+  k = values.shape[1]
+  terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
+  args = (d0.qpos[:, None].repeat(1, k).contiguous(),
+          d0.qvel[:, None].repeat(1, k).contiguous(), values,
+          lane_aux(task, spec, d0, k, terms))
+  sums, fin = kern(*args)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  sums_p, _ = kern.plain(*args)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t0) * 1e3
+  w = task.cost_spec.weights[:, None]
+  ret = (w * sums).sum(dim=0) / horizon
+  ret_p = (w * sums_p).sum(dim=0) / horizon
+  ok = torch.isfinite(ret) & torch.isfinite(ret_p)
+  rel = ((ret - ret_p).abs() / torch.clamp(ret_p.abs(), min=1.0))[ok]
+  nb, nf, bytes_ms, ops_ms = kernel_bound(kern, args, (sums, fin), horizon, k)
+  row = dict(K=k, H=horizon, naux=spec["naux"],
+             max_abs_err_return=float((ret - ret_p).abs()[ok].max()),
+             median_rel=float(rel.median()), max_rel=float(rel.max()),
+             share_over_tol=float((rel > TOL_RETURN_REL).float().mean()),
+             tol_return_rel=TOL_RETURN_REL, tol_share=TOL_RETURN_SHARE,
+             nonfinite=int((~ok).sum()), argmin=int(ret.argmin()),
+             argmin_plain=int(ret_p.argmin()),
+             kernel_ms=time_cuda(lambda: kern(*args), 10), plain_ms=plain_ms,
+             bytes=nb, flops=nf, bytes_ms=bytes_ms, ops_ms=ops_ms)
+  assert row["nonfinite"] <= TOL_NONFINITE_SHARE * k, row
+  assert row["share_over_tol"] <= TOL_RETURN_SHARE, row
+  return row
+
+
+def ground_site_aux_builds(device):
+  """Phase 7's tasks and rollout-kernel builds: Humanoid Track (cost sums,
+  per-step aux rows), Humanoid Stand (cost sums), the humanoid in states
+  mode (the step-by-step check), the quadrotor (site transmission) at its
+  own configuration in cost-sum and states mode; the planners of phase 7
+  find them built."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  from mujoco_mpc_tpu_torch.planners import sampling
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  tasks = {name: registry.get_task(name, device=device)
+           for name in ("Humanoid Track", "Humanoid Stand", "Quadrotor")}
+  track, stand, rotor = tasks.values()
+  t_spec = track.lane_residual_spec(horizon=HORIZON_HUMANOID)
+  s_spec = stand.lane_residual_spec()
+  r_spec = rotor.lane_residual_spec()
+  r_cfg = sampling.make_config(rotor)
+  kernels = {}
+  for name, task, spec, hor, p, states in (
+      ("humanoid_track_cost_sums", track, t_spec, HORIZON_HUMANOID, 2, False),
+      ("humanoid_stand_cost_sums", stand, s_spec, HORIZON_HUMANOID, 2, False),
+      ("humanoid_states", track, t_spec, HORIZON_HUMANOID, 2, True),
+      ("quadrotor_cost_sums", rotor, r_spec, r_cfg.horizon,
+       r_cfg.num_spline_points, False),
+      ("quadrotor_states", rotor, r_spec, r_cfg.horizon,
+       r_cfg.num_spline_points, True)):
+    terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
+    kernels[name] = step_lane.build_rollout_kernel(
+        task.plan_model, hor, p, residual=spec, naux=spec["naux"],
+        record_states=states, cost_terms=None if states else terms)
+  return tasks, kernels
+
+
+def ground_site_aux(tasks, kernels, counters, card, device):
+  """Phase 7: the rollout kernel's capsule/box ground contacts, site
+  transmission and per-step aux rows, then the three paths that need them.
+  Returns the summary entries of the paths' three cost-sum builds."""
+  from mujoco_mpc_tpu_torch.ops import sampling_lane, step_lane
+  from mujoco_mpc_tpu_torch.planners import sampling
+
+  rng = np.random.default_rng(SEED + 4)
+  gen = torch.Generator(device=device).manual_seed(SEED + 4)
+  track, stand, quad = tasks.values()
+  hm = track.plan_model
+  nq, nv = hm.nq, hm.nv
+  h_cfg = dataclasses.replace(sampling.make_config(track),
+                              num_trajectory=K_HUMANOID,
+                              horizon=HORIZON_HUMANOID)
+  p_h, expl_h = h_cfg.num_spline_points, h_cfg.exploration[0]
+  assert (nq, nv, hm.nu, p_h, expl_h) == (28, 27, 21, 2, 0.08)
+  t_spec = track.lane_residual_spec(horizon=HORIZON_HUMANOID)
+  defs = kernels["humanoid_track_cost_sums"].build_defines()
+  assert (defs["LR_NCON"], defs["LR_NPROW"], defs["LR_NSUP"],
+          defs["LR_NAUX"], defs["LR_NAUXS"]) == (
+              39, 156, 15, 36 * HORIZON_HUMANOID, 0), defs
+  d0 = track.make_data()
+  values = planner_candidates(track, K_HUMANOID, p_h, expl_h, rng, device)
+
+  # (l) humanoid, recorded states, step by step: perturbed standing poses
+  # lowered onto the floor (box feet 1 mm in, more or less with the joint
+  # noise), falling and folding onto capsule limbs over the horizon
+  kern = kernels["humanoid_states"]
+  home = d0.qpos.clone()
+  home[2] -= step_lane.contact_clearance(hm, home) + 0.001
+  qpos0 = home[:, None].repeat(1, K_HUMANOID)
+  qpos0[7:] += torch.as_tensor(0.01 * rng.standard_normal(
+      (hm.nu, K_HUMANOID)).astype(np.float32)).to(device)
+  qpos0[2] += torch.as_tensor(rng.uniform(-0.002, 0.002, K_HUMANOID).astype(
+      np.float32)).to(device)
+  qvel0 = torch.as_tensor(0.1 * rng.standard_normal(
+      (nv, K_HUMANOID)).astype(np.float32)).to(device)
+  qpos0, qvel0 = qpos0.contiguous(), qvel0.contiguous()
+  aux = lane_aux(track, t_spec, d0, K_HUMANOID, None)
+  rec = kern(qpos0, qvel0, values, aux)
+  torch.cuda.synchronize()
+  assert rec.shape == (HORIZON_HUMANOID, nq + nv + t_spec["dim"], K_HUMANOID)
+  row = step_by_step(kern, rec, values, aux, p_h, nq, nv, gen)
+  emit("kernels", case="humanoid_states_step_by_step", K=K_HUMANOID,
+       H=HORIZON_HUMANOID, torso_z_min=float(rec[:, 2].min()),
+       tol_qpos=TOL_STEP_QPOS, tol_qvel=TOL_STEP_QVEL, **row)
+  assert row["left_out_pairs"] <= TOL_NONFINITE_SHARE * rec[:, 0].numel()
+  assert row["passes"], row
+
+  # (m) the three paths' own cost-sum builds at their shapes, on their own
+  # inputs (home pose, the initial policy plus exploration): Humanoid Track
+  # with its per-step aux rows read through aux_at, Humanoid Stand with its
+  # aux rows in registers, the quadrotor at its own configuration
+  s_cfg = dataclasses.replace(sampling.make_config(stand),
+                              num_trajectory=K_HUMANOID,
+                              horizon=HORIZON_HUMANOID)
+  q_cfg = sampling.make_config(quad)
+  assert (q_cfg.num_trajectory, q_cfg.horizon, q_cfg.num_spline_points,
+          q_cfg.exploration[0]) == (30, 61, 5, 0.1)
+  q_spec = quad.lane_residual_spec()
+  checked = {}
+  for name, task, spec, cfg in (
+      ("humanoid_track", track, t_spec, h_cfg),
+      ("humanoid_stand", stand, stand.lane_residual_spec(), s_cfg),
+      ("quadrotor", quad, q_spec, q_cfg)):
+    vals = values if task is track else planner_candidates(
+        task, cfg.num_trajectory, cfg.num_spline_points, cfg.exploration[0],
+        rng, device)
+    checked[name] = cost_sums_check(kernels[f"{name}_cost_sums"], task, spec,
+                                    task.make_data(), vals, cfg.horizon)
+    emit("kernels", case=f"{name}_cost_sums", card=card, **checked[name])
+
+  # (n) quadrotor, site transmission, recorded states at its own
+  # configuration: airborne (4 m up, tilted: a tumbling quadrotor falls
+  # at most ~2 m in the horizon's 0.6 s), asymmetric thrusts; every step
+  # from the kernel's own state
+  qm = quad.plan_model
+  kern = kernels["quadrotor_states"]
+  assert kern.build_defines()["LR_SITE"] == 1
+  qd0 = quad.make_data()
+  qp0 = qd0.qpos[:, None].repeat(1, K_QUADROTOR_CHECK).clone()
+  qp0[2] += 3.7
+  qp0[3:7] += torch.as_tensor(0.1 * rng.standard_normal(
+      (4, K_QUADROTOR_CHECK)).astype(np.float32)).to(device)
+  qp0[3:7] /= qp0[3:7].norm(dim=0, keepdim=True)
+  qv0 = torch.as_tensor(0.3 * rng.standard_normal(
+      (qm.nv, K_QUADROTOR_CHECK)).astype(np.float32)).to(device)
+  q_vals = torch.as_tensor(rng.uniform(
+      0.5, 2.5, (q_cfg.num_spline_points * qm.nu, K_QUADROTOR_CHECK)).astype(
+          np.float32)).to(device)
+  q_aux = lane_aux(quad, q_spec, qd0, K_QUADROTOR_CHECK, None)
+  q_args = (qp0.contiguous(), qv0.contiguous(), q_vals, q_aux)
+  rec = kern(*q_args)
+  rec_p = kern.plain(*q_args)
+  torch.cuda.synchronize()
+  q_row = step_by_step(kern, rec, q_vals, q_aux, q_cfg.num_spline_points,
+                       qm.nq, qm.nv, gen)
+  emit("kernels", case="quadrotor_site_step_by_step", K=K_QUADROTOR_CHECK,
+       H=q_cfg.horizon, z_min=float(rec[:, 2].min()),
+       max_abs_err_full_rollout=float((rec - rec_p).abs().max()),
+       tol_qpos=TOL_STEP_QPOS, tol_qvel=TOL_STEP_QVEL, **q_row)
+  # airborne and contact-free: the steps are smooth, so nearly every one is
+  # within the tolerances (as the quadruped's in flight)
+  assert float(rec[:, 2].min()) > 0.1 and q_row["left_out_pairs"] == 0
+  assert q_row["share_within"] >= 1.0 - TOL_RETURN_SHARE, q_row
+
+  # paths: the lane planner through the entry points a user calls
+  def lane_path(task, cfg, iterations, name):
+    planner = sampling_lane.LaneSamplingPlanner(task, cfg, device=device)
+    assert planner.routes == dict(rollouts="rollout_kernel",
+                                  scoring="rollout_kernel"), planner.routes
+    infos, ms, launches, syncs = run_path(
+        planner, task.make_data(), iterations, counters,
+        torch.Generator(device=device).manual_seed(SEED))
+    nominal = [float(i["nominal_return"]) for i in infos]
+    best = [float(i["best_return"]) for i in infos]
+    emit(name, task=task.name, K=cfg.num_trajectory, H=cfg.horizon,
+         P=cfg.num_spline_points, exploration=cfg.exploration[0],
+         timestep=float(task.plan_model.opt.timestep),
+         iterations=iterations, ms_per_iteration=ms,
+         rollouts_per_s=cfg.num_trajectory / (ms * 1e-3), launches=launches,
+         host_syncs_per_iteration=syncs, routes=planner.routes,
+         best_return=best, nominal_return=nominal,
+         poisoned_per_iteration=[int((i["returns"] >= 1e6).sum())
+                                 for i in infos], card=card)
+    assert launches == dict(rollout=iterations, riccati=0, scoring=0,
+                            cholesky=0), launches
+    assert syncs == 0, syncs
+    for i in range(iterations):
+      assert np.isfinite(nominal[i]) and best[i] <= nominal[i], \
+          (i, best[i], nominal[i])
+      assert i == 0 or nominal[i] <= nominal[i - 1], (i, nominal)
+    assert best[-1] < 1e6, best
+    return launches["rollout"]
+
+  launches = {}
+  launches["humanoid_track_path"] = lane_path(
+      track, h_cfg, HUMANOID_TRACK_ITERATIONS, "humanoid_track_path")
+  launches["humanoid_stand_path"] = lane_path(
+      stand, s_cfg, HUMANOID_STAND_ITERATIONS, "humanoid_stand_path")
+  launches["quadrotor_path"] = lane_path(
+      quad, q_cfg, QUADROTOR_ITERATIONS, "quadrotor_path")
+
+  def entry(name, path):
+    row = checked[name]
+    return dict(
+        name=f"step_lane.rollout[{name}]", route="cuda",
+        source="mujoco_mpc_tpu_torch/ops/csrc/lane_rollout.cu",
+        replaces="mujoco_mpc_tpu/ops/step_lane.py:184",
+        launches=launches[path], launches_by_path={path: launches[path]},
+        max_abs_err=row["max_abs_err_return"], ms=row["kernel_ms"],
+        plain_ms=row["plain_ms"],
+        bound_ms=max(row["bytes_ms"], row["ops_ms"]),
+        bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
+        else "operations", library_ms=None)
+
+  # the quadrotor's build carries the site transmission
+  return [entry("humanoid_track", "humanoid_track_path"),
+          entry("humanoid_stand", "humanoid_stand_path"),
+          dict(entry("quadrotor", "quadrotor_path"),
+               name="step_lane.rollout[site]")]
+
+
 def main():
   # ---- 1. device ----
   if not torch.cuda.is_available():
@@ -500,6 +848,8 @@ def main():
       record_states=True, feedback=True)
   kernels["cartpole_states_own_config"] = step_lane.build_rollout_kernel(
       cart.plan_model, cart_cfg.horizon, cart_cfg.num_spline_points)
+  e_tasks, e_kernels = ground_site_aux_builds(device)
+  kernels.update(e_kernels)
   score_tasks = {"quadruped": quad, "swimmer": swim, "cartpole": cart}
   chol_ns = sorted({n for n, _ in CHOL_SIZES})
   t0 = time.perf_counter()
@@ -1433,7 +1783,10 @@ def main():
   for i in range(1, CARTPOLE_ITERATIONS):
     assert nominal[i] <= nominal[i - 1] * (1 + 1e-6), (i, nominal)
 
-  # ---- 7. summary lines ----
+  # ---- 7. ground contacts, site transmission, per-step aux rows ----
+  slice_e_entries = ground_site_aux(e_tasks, kernels, counters, card, device)
+
+  # ---- 8. summary lines ----
   csrc = "mujoco_mpc_tpu_torch/ops/csrc/"
   print(json.dumps({"kernels": [{
       "name": "step_lane.rollout",
@@ -1509,7 +1862,7 @@ def main():
       "bound_by": "bytes" if chol_main["bytes_ms"] >= chol_main["ops_ms"]
                   else "operations",
       "library_ms": chol_main["library_ms"],
-  }]}), flush=True)
+  }] + slice_e_entries}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

@@ -4,11 +4,13 @@
 // Replaces the TPU (Pallas) kernel mujoco_mpc_tpu/ops/step_lane.py:
 // build_rollout_kernel. Per horizon step and candidate: forward kinematics,
 // com quantities, composite-inertia mass matrix, RNE bias, passive forces,
-// (springs, dampers, the inertia-box fluid model), joint-transmission
-// actuation, the task residual on the pre-step state,
-// joint-limit rows and plane-sphere contacts (pyramidal rows, condim-1 rows
-// or elliptic cone blocks), Newton on the acceleration with a safeguarded
-// exact line search, implicit-damping Euler with quaternion integration.
+// (springs, dampers, the inertia-box fluid model), joint- and
+// site-transmission actuation, the task residual on the pre-step state,
+// joint-limit rows and ground contacts (a point per sphere centre, capsule
+// end or box corner against a world-static plane: pyramidal rows, condim-1
+// rows or elliptic cone blocks), Newton on the acceleration with a
+// safeguarded exact line search, implicit-damping Euler with quaternion
+// integration.
 //
 // One generic source. A build specialises it with compile-time dimensions
 // (-DLR_NQ=.. etc., listed below) and one task-residual header
@@ -58,6 +60,7 @@
     !defined(LR_H) || \
     !defined(LR_P) || \
     !defined(LR_NAUX) || \
+    !defined(LR_NAUXS) || \
     !defined(LR_NTERM) || \
     !defined(LR_NR) || \
     !defined(LR_N_NEWTON) || \
@@ -69,6 +72,7 @@
     !defined(LR_PROFILE) || \
     !defined(LR_CTRL) || \
     !defined(LR_FLUID) || \
+    !defined(LR_SITE) || \
     !defined(RESIDUAL_HEADER)
 #error "lane_rollout.cu needs its compile-time dimensions (see ops/step_lane.py)"
 #endif
@@ -85,6 +89,7 @@
 #define H LR_H
 #define P LR_P
 #define NAUX LR_NAUX
+#define NAUXS LR_NAUXS
 #define NTERM LR_NTERM
 #define NR LR_NR
 #define N_NEWTON LR_N_NEWTON
@@ -96,10 +101,13 @@
 #define PROFILE LR_PROFILE
 #define CTRL LR_CTRL
 #define FLUID LR_FLUID
+#define SITE LR_SITE
 
 #define D1(n) ((n) > 0 ? (n) : 1)
 #define NLIM (2 * (NLIMJ))
-#define NAUXK ((NAUX) + 2 * (NTERM))
+// aux rows a thread keeps in registers: the task's static rows, then the
+// norm parameters (global rows NAUX ..); per-step rows stay in global memory
+#define NAUXK ((NAUXS) + 2 * (NTERM))
 #define HAS_ROWS ((NLIMJ) > 0 || (NCON) > 0)
 #define NDX (2 * (NV))
 #define STRIDE (2 * (NU) + (NU) * NDX + (NQ) + (NV))
@@ -120,8 +128,15 @@ struct StepCtx {
   const float (*subtree_com)[3];  // ref of body b: subtree_com[body_rootid[b]]
   const float (*cvel)[6];         // angular 0..2, linear 3..5, about ref
   const float* act_force;
-  const float* aux;
+  const float* aux;        // the task's NAUXS static aux rows (registers)
+  const float* aux_rows;   // every aux row, (NAUX + 2 NTERM, K), global
+  int K, k;
   int t;
+  // row i of the aux tensor for this candidate (per-step rows), read from
+  // global memory through the read-only path, coalesced over candidates
+  __device__ __forceinline__ float aux_at(int i) const {
+    return __ldg(aux_rows + (size_t)i * K + k);
+  }
 };
 
 // Field order and padded shapes mirror _pack_tables in ops/step_lane.py.
@@ -202,6 +217,11 @@ struct TablesHead {
   float fluid_visc[NBODY][2];      // viscous torque, force coefficients
   float fluid_dens_f[NBODY][3];    // quadratic-drag force, per local axis
   float fluid_dens_t[NBODY][3];    // quadratic-drag torque, per local axis
+  int act_site[D1(NU)];            // actuator has a site transmission
+  int act_sitebody[D1(NU)];        // its site's body
+  float act_sitepos[D1(NU)][3];    // site position, quaternion in the body
+  float act_sitequat[D1(NU)][4];
+  float act_gear6[D1(NU)][6];      // force (0..2), torque (3..5) in the site
 };
 
 // impedance constant block: d0 dmax width mid power a_c b_c b_coef k_coef
@@ -386,7 +406,9 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
   for (int i = 0; i < NQ; ++i) qpos[i] = qpos0[i * K + k];
   for (int i = 0; i < NV; ++i) qvel[i] = qvel0[i * K + k];
   if (NR > 0) {
-    for (int i = 0; i < NAUXK; ++i) aux[i] = aux_in[i * K + k];
+    for (int i = 0; i < NAUXS; ++i) aux[i] = aux_in[i * K + k];
+    for (int i = 0; i < 2 * NTERM; ++i)
+      aux[NAUXS + i] = aux_in[(NAUX + i) * K + k];
   }
   for (int i = 0; i < NTERM; ++i) sums[i] = 0.0f;
 #if CTRL
@@ -723,8 +745,34 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           uin = clampf(uin, tb.act_ctrlrange[u][0], tb.act_ctrlrange[u][1]);
         const int dadr = tb.act_dadr[u];
         const float gear = tb.act_gear[u];
-        const float length = qpos[tb.act_qadr[u]] * gear;
-        const float velocity = qvel[dadr] * gear;
+        float length = qpos[tb.act_qadr[u]] * gear;
+        float velocity = qvel[dadr] * gear;
+#if SITE
+        // site transmission: the gear's wrench at the site, in world
+        // coordinates; its moment over the site body's dofs, length 0
+        float moment[D1(NV)];
+        const bool at_site = tb.act_site[u] != 0;
+        if (at_site) {
+          const int bid = tb.act_sitebody[u];
+          float wq[4], f_w[3], t_ref[3], spos[3], rxf[3];
+          quat_mul(xquat[bid], tb.act_sitequat[u], wq);
+          quat_rot(wq, tb.act_gear6[u], f_w);
+          quat_rot(wq, tb.act_gear6[u] + 3, t_ref);
+          quat_rot(xquat[bid], tb.act_sitepos[u], spos);
+          const float* rf = subtree_com[tb.body_rootid[bid]];
+          for (int a = 0; a < 3; ++a)
+            spos[a] = (spos[a] + xpos[bid][a]) - rf[a];
+          cross3(spos, f_w, rxf);
+          for (int a = 0; a < 3; ++a) t_ref[a] += rxf[a];
+          length = 0.0f;
+          velocity = 0.0f;
+          for (int d = 0; d < NV; ++d) {
+            moment[d] = tb.body_dofmask[bid][d]
+                ? dot3(cdof[d], t_ref) + dot3(cdof[d] + 3, f_w) : 0.0f;
+            velocity += moment[d] * qvel[d];
+          }
+        }
+#endif
         float gain = tb.act_gainprm[u][0];
         if (!tb.act_gainfixed[u])
           gain = tb.act_gainprm[u][0] + tb.act_gainprm[u][1] * length +
@@ -738,6 +786,14 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           force = clampf(force, tb.act_forcerange[u][0],
                          tb.act_forcerange[u][1]);
         act_force[u] = force;
+#if SITE
+        if (at_site) {
+          for (int d = 0; d < NV; ++d)
+            if (tb.body_dofmask[tb.act_sitebody[u]][d])
+              qfrc[d] += moment[d] * force;
+          continue;
+        }
+#endif
         qfrc[dadr] += gear * force;
       }
       for (int i = 0; i < NV; ++i) rhs[i] = qfrc[i] - rhs[i];
@@ -749,7 +805,8 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
       ctx.qpos = qpos; ctx.qvel = qvel; ctx.ctrl = ctrl;
       ctx.xpos = xpos; ctx.xquat = xquat; ctx.xipos = xipos;
       ctx.subtree_com = subtree_com; ctx.cvel = cvel;
-      ctx.act_force = act_force; ctx.aux = aux; ctx.t = t;
+      ctx.act_force = act_force; ctx.aux = aux; ctx.aux_rows = aux_in;
+      ctx.K = K; ctx.k = k; ctx.t = t;
       task_residual(ctx, tc, res);
     }
     if (MODE == 0) {
@@ -764,7 +821,7 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
       int off = 0;
       for (int n = 0; n < NTERM; ++n) {
         sums[n] += term_cost(res + off, tb.term_dim[n], tb.term_type[n],
-                             aux[NAUX + 2 * n], aux[NAUX + 2 * n + 1]);
+                             aux[NAUXS + 2 * n], aux[NAUXS + 2 * n + 1]);
         off += tb.term_dim[n];
       }
     }
@@ -782,8 +839,10 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           tb.lim_imp[l], tb.lim_invw[l], &lim_aref[2 * l + 1],
           &lim_d[2 * l + 1]);
     }
-    // plane-sphere contacts: direction Jacobians over the supporting dofs
-    // (normal, tangent 1, tangent 2, then rotations about the same dirs)
+    // ground contacts, one table entry per contact point (a sphere centre,
+    // a capsule end or a box corner: a body-local point and a radius):
+    // direction Jacobians over the supporting dofs (normal, tangent 1,
+    // tangent 2, then rotations about the same dirs)
     float prow_j[D1(NPROW)][D1(NSUP)], prow_aref[D1(NPROW)], prow_d[D1(NPROW)];
     float e_j[D1(NECON)][EROWS][D1(NSUP)], e_aref[D1(NECON)][EROWS];
     float e_dn[D1(NECON)];

@@ -13,6 +13,7 @@ kernel's raw (H, nq+nv, K) output to (H, nr, K) residuals.
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import numpy as np
@@ -22,6 +23,17 @@ from mujoco_mpc_tpu_torch import spline as spline_lib
 from mujoco_mpc_tpu_torch.ops import scoring, step_lane
 from mujoco_mpc_tpu_torch.physics.model import check_device
 from mujoco_mpc_tpu_torch.planners import sampling
+
+
+def lane_residual_spec(task, horizon: int) -> Optional[dict]:
+  """The task's lane residual spec, or None if it has none. A spec whose
+  signature takes `horizon` (time-varying targets packed as per-step aux
+  rows, e.g. tracking) is given it."""
+  if not hasattr(task, "lane_residual_spec"):
+    return None
+  if "horizon" in inspect.signature(task.lane_residual_spec).parameters:
+    return task.lane_residual_spec(horizon=horizon)
+  return task.lane_residual_spec()
 
 
 def make_lane_returns_fn(task, config, solver_iters=None,
@@ -57,8 +69,7 @@ def make_lane_returns_fn(task, config, solver_iters=None,
   if config.interp != spline_lib.Interpolation.ZERO:
     raise ValueError("the lane kernel holds spline nodes zero-order; got "
                      f"interp={config.interp}")
-  spec = task.lane_residual_spec() \
-      if hasattr(task, "lane_residual_spec") else None
+  spec = lane_residual_spec(task, config.horizon)
   if spec is None and not hasattr(task, "residual_from_rollout"):
     raise ValueError(
         "task must implement lane_residual_spec or residual_from_rollout")

@@ -3,7 +3,7 @@
 Replaces the TPU kernel `mujoco_mpc_tpu/ops/step_lane.py:
 build_rollout_kernel` (Pallas). The ENTIRE rollout — FK, composite-inertia
 mass matrix, RNE bias, passive forces, actuation, the in-kernel task
-residual, joint-limit and plane-contact constraint rows, the Newton
+residual, joint-limit and ground-contact constraint rows, the Newton
 constraint solve with its safeguarded line search, implicit-damping Euler —
 runs for every horizon step inside one CUDA kernel, one thread per
 candidate (ops/csrc/lane_rollout.cu). Device memory sees only the initial
@@ -29,11 +29,13 @@ python loops over the static model structure. It backs `.step_array`,
 uses it only for tensors that live on the CPU; for CUDA tensors it
 launches the kernel or raises.
 
-Model class: hinge/slide/free joints, joint transmissions, joint limits,
-the inertia-box fluid model (viscosity / density / wind), world-static
-plane vs sphere contacts (pyramidal rows, condim-1 rows, or elliptic cone
-blocks at condim 3/4/6 with impratio). Site transmissions, capsule/box
-ground contacts, body-body pairs and per-step aux rows are not ported yet:
+Model class: hinge/slide/free joints, joint and site transmissions, joint
+limits, the inertia-box fluid model (viscosity / density / wind),
+world-static plane vs sphere / capsule / box contacts (a contact point per
+sphere centre, capsule end and box corner; pyramidal rows, condim-1 rows,
+or elliptic cone blocks at condim 3/4/6 with impratio), task residuals
+with static and per-step aux rows. Body-body pairs, ball joints, equality
+constraints, friction loss and activation states are not ported yet:
 `supports` returns False for them and `build_rollout_kernel` raises.
 
 Two control modes: the zero-order-hold spline of the sampling planners, and
@@ -55,9 +57,11 @@ import torch
 from mujoco_mpc_tpu_torch.costs.norms import NormType
 from mujoco_mpc_tpu_torch.ops import _build
 from mujoco_mpc_tpu_torch.ops import lanemath as lm
+from mujoco_mpc_tpu_torch.physics import kinematics
 from mujoco_mpc_tpu_torch.physics.model import (
-    BIAS_NONE, FREE, GAIN_FIXED, GEOM_PLANE, GEOM_SPHERE, HINGE, SLIDE,
-    TRN_JOINT, Model, fluid_box)
+    BIAS_NONE, FREE, GAIN_FIXED, GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE,
+    GEOM_SPHERE, HINGE, SLIDE, TRN_JOINT, TRN_SITE, Model, fluid_box,
+    make_data)
 
 # launches of the CUDA kernel made by any rollout wrapper of this module
 # (incremented where a wrapper launches, nowhere else)
@@ -72,12 +76,16 @@ def _np(x) -> np.ndarray:
 
 
 def _ground_groups(m: Model):
-  """Plane-vs-geom pair groups whose plane is world-static."""
+  """Plane-vs-{sphere,capsule,box} pair groups whose plane is
+  world-static; ground pairs of other geom types (e.g. cylinders) are
+  dropped from the planning model, as in the JAX package."""
   if m.collision_pairs is None:
     return []
   out = []
   for g in m.collision_pairs.groups:
     if g.types[0] != GEOM_PLANE:
+      continue
+    if g.types[1] not in (GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX):
       continue
     if any(int(m.geom_bodyid[gid]) != 0 for gid in g.geom1):
       continue
@@ -98,30 +106,38 @@ def _selected_ground_pairs(m: Model, contact_types, contact_geoms):
   return out
 
 
-def supports(m: Model, ground_only: bool = False, contact_types=None,
-             contact_geoms=None) -> bool:
-  """Model class the kernel handles. With ground_only=True, candidate
-  pairs that are not plane-vs-geom (e.g. self-collisions) are DROPPED
-  from the planning dynamics — a deliberate planning-model approximation;
-  `contact_types` / `contact_geoms` restrict the ground pairs further,
-  and every pair that remains must be plane-vs-sphere."""
+def unsupported(m: Model, ground_only: bool = False) -> Optional[str]:
+  """What puts `m` outside the kernel's model class, or None. With
+  ground_only=True, candidate pairs that are not plane-vs-{sphere,capsule,
+  box} (self-collisions, other geom types) are DROPPED from the planning
+  dynamics — a deliberate planning-model approximation, the JAX package's
+  own. Body-body pairs are not ported (the JAX kernel's opt-in
+  `body_pairs`)."""
   jt = set(int(t) for t in m.jnt_type)
   if not jt <= {HINGE, SLIDE, FREE}:
-    return False
+    return "ball joints"
   if m.collision_pairs is not None and m.collision_pairs.ncon > 0:
     if not ground_only:
-      return False
-    for g, _ in _selected_ground_pairs(m, contact_types, contact_geoms):
-      if g.types[1] != GEOM_SPHERE:
-        return False
-  if m.neq or m.na:
-    return False
+      return "body-body contact pairs (pass ground_only=True to drop them)"
+    if not _ground_groups(m):
+      return "body-body contact pairs (the model has no ground pairs)"
+  if m.neq:
+    return "equality constraints"
+  if m.na:
+    return "activation states"
   if np.any(_np(m.dof_frictionloss) > 0):
-    return False
+    return "friction loss"
   for u in range(m.nu):
-    if int(m.actuator_trntype[u]) != TRN_JOINT:
-      return False
-  return True
+    if int(m.actuator_trntype[u]) not in (TRN_JOINT, TRN_SITE):
+      return f"actuator transmission type {int(m.actuator_trntype[u])}"
+  return None
+
+
+def supports(m: Model, ground_only: bool = False) -> bool:
+  """Model class the kernel handles (`unsupported` says what is missing);
+  answers what the JAX package's supports(m, ground_only,
+  body_pairs=False) answers."""
+  return unsupported(m, ground_only) is None
 
 
 def _static(m: Model) -> dict:
@@ -149,6 +165,7 @@ def _static(m: Model) -> dict:
       geom_size=g(m.geom_size), body_invweight0=g(m.body_invweight0),
       forcerange=g(m.actuator_forcerange),
       forcelimited=g(m.actuator_forcelimited),
+      site_pos=g(m.site_pos), site_quat=g(m.site_quat),
       impratio=float(g(m.opt.impratio)),
       cone=int(m.opt.cone),
       viscosity=float(g(m.opt.viscosity)), density=float(g(m.opt.density)),
@@ -217,10 +234,33 @@ def _quat_rotate(q, v) -> np.ndarray:
   return r @ np.asarray(v, dtype=np.float64)
 
 
+def _geom_points(m: Model, c: dict, gid: int) -> list:
+  """(body-local point, radius) of every contact point a ground geom
+  carries, in the JAX kernel's order: a sphere's centre; a capsule's two
+  end centres at +-half-length along the geom z axis; a box's 8 corners
+  (radius 0). Host float64: geom_pos + R(geom_quat) local."""
+  gtype = int(m.geom_type[gid])
+  size = np.asarray(c["geom_size"][gid], np.float64)
+  gpos = np.asarray(c["geom_pos"][gid], np.float64)
+  gquat = c["geom_quat"][gid]
+  if gtype == GEOM_SPHERE:
+    return [(gpos, float(size[0]))]
+  if gtype == GEOM_CAPSULE:
+    return [(gpos + _quat_rotate(gquat, [0.0, 0.0, sgn * size[1]]),
+             float(size[0])) for sgn in (1.0, -1.0)]
+  if gtype == GEOM_BOX:
+    return [(gpos + _quat_rotate(gquat, [sx * size[0], sy * size[1],
+                                         sz * size[2]]), 0.0)
+            for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+  raise NotImplementedError(f"ground contact of geom type {gtype}")
+
+
 def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
-  """Static description of every plane-sphere candidate contact the
-  planning model keeps: body, sphere centre and radius, the static plane
-  and contact frame, mixed solver parameters, supporting dofs."""
+  """Static description of every ground contact POINT the planning model
+  keeps (a sphere centre, a capsule end or a box corner): body, body-local
+  point and radius, the static plane and contact frame, the pair's mixed
+  solver parameters (a capsule's two ends share its pair's), supporting
+  dofs."""
   cp = m.collision_pairs
   if cp is None or cp.ncon == 0:
     return []
@@ -232,10 +272,6 @@ def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
       off += g.ncon_per_pair
   out = []
   for g, pi in _selected_ground_pairs(m, contact_types, contact_geoms):
-    if g.types[1] != GEOM_SPHERE:
-      raise NotImplementedError(
-          f"ground contact of geom type {g.types[1]} is not ported yet "
-          "(plane-sphere only); restrict contact_types / contact_geoms")
     g1, g2 = int(g.geom1[pi]), int(g.geom2[pi])
     ci = meta[(g1, g2)]
     bid = int(m.geom_bodyid[g2])
@@ -252,10 +288,8 @@ def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
     condim = int(cp.con_condim[ci])
     mu0 = max(float(fri[0]), 1e-12)
     impr = max(c["impratio"], 1e-12)
-    out.append(dict(
-        bid=bid, geom_pos=np.asarray(c["geom_pos"][g2], np.float64),
-        radius=float(c["geom_size"][g2][0]), n_pl=n_pl, p_pl=p_pl,
-        dirs=[n_pl, t1, t2], fri=fri,
+    pair = dict(
+        bid=bid, n_pl=n_pl, p_pl=p_pl, dirs=[n_pl, t1, t2], fri=fri,
         imp=_impedance_consts(cp.con_solref[ci], cp.con_solimp[ci]),
         incm=float(cp.con_includemargin[ci]), invw=invw, condim=condim,
         support=[i for i in range(m.nv) if m.body_dof_mask[bid][i] > 0],
@@ -263,8 +297,24 @@ def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
         mu=mu0 / np.sqrt(impr),
         scales=fri / (mu0 / np.sqrt(impr)),
         # pyramidal: friction[0]-based diagonal stiffened by impratio
-        iw=invw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) / impr))
+        iw=invw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) / impr)
+    for point, radius in _geom_points(m, c, g2):
+      out.append(dict(pair, geom_pos=point, radius=radius))
   return out
+
+
+def contact_clearance(m: Model, qpos) -> float:
+  """Lowest clearance (distance along the plane normal less the radius) of
+  the ground contact points the kernel keeps, at one configuration qpos
+  (nq,)."""
+  qpos = torch.as_tensor(qpos, dtype=m.qpos0.dtype, device=m.qpos0.device)
+  d = kinematics.kinematics(m, make_data(m).replace(qpos=qpos))
+  xpos, xquat = _np(d.xpos), _np(d.xquat)
+  return min(
+      float((xpos[con["bid"]] + _quat_rotate(xquat[con["bid"]],
+                                             con["geom_pos"])
+             - con["p_pl"]) @ con["n_pl"]) - con["radius"]
+      for con in _contact_plan(m, _static(m), None, None))
 
 
 def _limit_plan(m: Model, c: dict) -> list:
@@ -329,10 +379,12 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
     return aref, dcoef
 
   def step_body(qpos, qvel, ctrl, t_step=None, aux=None,
-                derived_only=False):
+                derived_only=False, aux_dyn=None):
     """One physics step; returns (qpos', qvel', res) where res is the
-    residual row list (or None). With derived_only, only the quantities
-    the residual needs are computed and (None, None, res) is returned."""
+    residual row list (or None). `aux` holds the task's aux rows, `aux_dyn`
+    reads row i of the (naux, K) aux tensor (per-step rows). With
+    derived_only, only the quantities the residual needs are computed and
+    (None, None, res) is returned."""
     like = qpos[0]
     skip_dyn = derived_only
 
@@ -575,11 +627,26 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
       if c["ctrllimited"][u]:
         uin = torch.clamp(uin, float(c["ctrlrange"][u][0]),
                           float(c["ctrlrange"][u][1]))
-      dadr = int(m.jnt_dofadr[tid])
-      qadr = int(m.jnt_qposadr[tid])
-      gear = float(c["gear"][u][0])
-      length = qpos[qadr] * gear
-      velocity = qvel[dadr] * gear
+      if int(m.actuator_trntype[u]) == TRN_JOINT:
+        dadr = int(m.jnt_dofadr[tid])
+        gear = float(c["gear"][u][0])
+        length = qpos[int(m.jnt_qposadr[tid])] * gear
+        velocity = qvel[dadr] * gear
+        moment = {dadr: gear}
+      else:  # TRN_SITE: the gear's world wrench at the site
+        bid = int(m.site_bodyid[tid])
+        gr = c["gear"][u]
+        wq = lm.qmul(xquat[bid], lm.const_quat(c["site_quat"][tid], like))
+        f_w = lm.qrot(wq, cv(gr[0:3]))
+        t_w = lm.qrot(wq, cv(gr[3:6]))
+        spos = lm.vadd(xpos[bid],
+                       lm.qrot(xquat[bid], cv(c["site_pos"][tid])))
+        t_ref = lm.vadd(t_w, lm.vcross(lm.vsub(spos, ref[bid]), f_w))
+        dofs = [i for i in range(nv) if m.body_dof_mask[bid][i] > 0]
+        moment = {i: lm.vdot(cdof[i][0], t_ref) + lm.vdot(cdof[i][1], f_w)
+                  for i in dofs}
+        length = like * 0.0
+        velocity = sum((moment[i] * qvel[i] for i in dofs), like * 0.0)
       gp = c["gainprm"][u]
       if int(c["gaintype"][u]) == GAIN_FIXED:
         gain = float(gp[0])
@@ -595,7 +662,8 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
         force = torch.clamp(force, float(c["forcerange"][u][0]),
                             float(c["forcerange"][u][1]))
       act_force.append(force)
-      qfrc[dadr] = qfrc[dadr] + gear * force
+      for i, mom in moment.items():
+        qfrc[i] = qfrc[i] + mom * force
 
     rhs = [qfrc[i] - qfrc_bias[i] for i in range(nv)]
 
@@ -631,9 +699,9 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
     if residual_fn is not None:
       res = residual_fn(dict(
           m=m, c=c, cv=cv, like=like, h=h, t=t_step, aux=aux,
-          qpos=qpos, qvel=qvel, ctrl=ctrl, xpos=xpos, xquat=xquat,
-          xipos=xipos, subtree_com=subtree_com, ref=ref, cvel=cvel,
-          act_force=act_force))
+          aux_dyn=aux_dyn, qpos=qpos, qvel=qvel, ctrl=ctrl, xpos=xpos,
+          xquat=xquat, xipos=xipos, subtree_com=subtree_com, ref=ref,
+          cvel=cvel, act_force=act_force))
       assert len(res) == residual_dim, (len(res), residual_dim)
     if derived_only:
       return None, None, res
@@ -1008,6 +1076,9 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   h = c["timestep"]
   i32, f32 = np.int32, table_float
   tid = [int(m.actuator_trnid[u, 0]) for u in range(nu)]
+  site = [int(m.actuator_trntype[u]) == TRN_SITE for u in range(nu)]
+  jtid = [0 if site[u] else tid[u] for u in range(nu)]
+  stid = [tid[u] if site[u] else 0 for u in range(nu)]
   sup = np.zeros((_d1(ncon), nsup), i32)
   for ci, con in enumerate(contacts):
     sup[ci, :len(con["support"])] = con["support"]
@@ -1042,8 +1113,8 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       (m.jnt_dofadr, i32, (_d1(nj),)), (m.jnt_bodyid, i32, (_d1(nj),)),
       (m.dof_bodyid, i32, (_d1(nv),)), (m.dof_jntid, i32, (_d1(nv),)),
       (anc | anc.T, i32, (_d1(nv), _d1(nv))),
-      ([int(m.jnt_qposadr[t]) for t in tid], i32, (_d1(nu),)),
-      ([int(m.jnt_dofadr[t]) for t in tid], i32, (_d1(nu),)),
+      ([int(m.jnt_qposadr[t]) for t in jtid], i32, (_d1(nu),)),
+      ([int(m.jnt_dofadr[t]) for t in jtid], i32, (_d1(nu),)),
       (np.asarray(c["gaintype"]) == GAIN_FIXED, i32, (_d1(nu),)),
       (np.asarray(c["biastype"]) != BIAS_NONE, i32, (_d1(nu),)),
       (np.asarray(c["ctrllimited"]) != 0, i32, (_d1(nu),)),
@@ -1102,6 +1173,14 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       (fluid_col(lambda fl: [fl["visc_t"], fl["visc_f"]], 2), f32, (nb, 2)),
       (fluid_col(lambda fl: fl["dens_f"], 3), f32, (nb, 3)),
       (fluid_col(lambda fl: fl["dens_t"], 3), f32, (nb, 3)),
+      (site, i32, (_d1(nu),)),
+      ([int(m.site_bodyid[t]) for t in stid] if any(site) else [], i32,
+       (_d1(nu),)),
+      ([c["site_pos"][t] for t in stid] if any(site) else [], f32,
+       (_d1(nu), 3)),
+      ([c["site_quat"][t] for t in stid] if any(site) else [], f32,
+       (_d1(nu), 4)),
+      (actcols("gear", 6), f32, (_d1(nu), 6)),
   ]
   if residual is not None:
     fields += [(v, f32 if dt == np.float32 else dt, np.asarray(v).shape)
@@ -1112,7 +1191,7 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   # rows every elliptic block carries: the largest condim among them
   erows = max([contacts[ci]["condim"] for ci in econ_con] + [1])
   dims = dict(NLIMJ=nlimj, NCON=ncon, NPROW=nprow, NECON=necon, NSUP=nsup,
-              EROWS=erows, FLUID=int(bool(fluid)))
+              EROWS=erows, FLUID=int(bool(fluid)), SITE=int(any(site)))
   return blob, dims
 
 
@@ -1141,9 +1220,13 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
 
   `residual` is a task's lane residual spec: `fn` (plain PyTorch residual
   on the step context), `dim`, `header` (CUDA device function under
-  ops/csrc) and `consts` (its constant table). It is evaluated once per
-  step on the pre-step state. solver_iters / solver_ls_iters default to
-  the model's own schedule.
+  ops/csrc) and `consts` (its constant table), and optionally
+  `naux_static`: the number of leading aux rows the residual reads as
+  `aux` (default all `naux`); rows past them are per-step rows the residual
+  reads through `aux_dyn(i)` (the device function through `aux_at(i)`,
+  from global memory). It is evaluated once per step on the pre-step
+  state. solver_iters / solver_ls_iters default to the model's own
+  schedule.
 
   With `feedback=True` (recorded states only; `num_nodes` is not used) the
   callable is fn(qpos0, qvel0, values (2,K), aux, table (horizon*stride,))
@@ -1169,13 +1252,13 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   callable carries `.step_array` and `.residual_array` (plain version of
   one step on (dim, K) tensors).
   """
-  if not supports(m, ground_only=True, contact_types=contact_types,
-                  contact_geoms=contact_geoms):
+  missing = unsupported(m, ground_only=True)
+  if missing is not None:
     raise NotImplementedError(
-        "model outside the ported kernel class (see ops/step_lane.py: "
-        "site transmissions, non-sphere ground contacts, body-body pairs, "
-        "ball joints, equality constraints, friction loss and activation "
-        "states are not ported yet)")
+        f"model outside the ported kernel class: {missing} (see "
+        "ops/step_lane.py: body-body pairs, ball joints, equality "
+        "constraints, friction loss and activation states are not ported "
+        "yet)")
   c = _static(m)
   nq, nv, nu = m.nq, m.nv, m.nu
   n_newton = int(m.opt.iterations) if solver_iters is None \
@@ -1197,6 +1280,12 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
 
   residual_fn = residual["fn"] if residual is not None else None
   nr = int(residual["dim"]) if residual is not None else 0
+  # leading aux rows the residual reads as `aux` (the kernel keeps them in
+  # registers); the rest are per-step rows read through `aux_dyn`
+  naux_static = int(residual.get("naux_static", naux)) \
+      if residual is not None else 0
+  if not 0 <= naux_static <= naux:
+    raise ValueError(f"naux_static {naux_static} outside [0, {naux}]")
   nterm = len(cost_terms) if cost_terms else 0
   if not record_states and residual is None:
     raise ValueError("record_states=False requires an in-kernel residual")
@@ -1257,9 +1346,10 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       table = table.reshape(horizon, stride)
     qpos = [qpos0[i] for i in range(nq)]
     qvel = [qvel0[i] for i in range(nv)]
-    aux_rows = norm_p = None
+    aux_rows = norm_p = aux_dyn = None
     if residual is not None:
       aux_rows = [aux[i] for i in range(naux)]
+      aux_dyn = lambda i: aux[i]
       if cost_terms:
         norm_p = [aux[naux + i] for i in range(2 * nterm)]
     sums = [torch.zeros_like(qpos[0]) for _ in range(nterm)]
@@ -1270,7 +1360,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       else:
         node = node_of_step[t]
         ctrl = [values[node * nu + u] for u in range(nu)]
-      new_qpos, new_qvel, res = step_body(qpos, qvel, ctrl, t, aux_rows)
+      new_qpos, new_qvel, res = step_body(qpos, qvel, ctrl, t, aux_rows,
+                                          aux_dyn=aux_dyn)
       if cost_terms:
         sums = [s_ + c_ for s_, c_ in zip(sums, term_costs(res, norm_p))]
       elif record_states:
@@ -1294,7 +1385,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
     header = residual["header"] if residual is not None \
         else "residual_none.cuh"
     d = dict(NQ=nq, NV=nv, NU=nu, NBODY=m.nbody, NJNT=m.njnt, H=horizon,
-             P=num_nodes, NAUX=naux, NTERM=nterm, NR=nr, N_NEWTON=n_newton,
+             P=num_nodes, NAUX=naux, NAUXS=naux_static, NTERM=nterm, NR=nr,
+             N_NEWTON=n_newton,
              N_LS=n_ls, MODE=mode, CONE=int(c["cone"]), BLOCK=int(_block),
              PROFILE=int(_profile), CTRL=int(feedback),
              **dims)
@@ -1397,7 +1489,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
     qv = [qvel[i] for i in range(nv)]
     ct = [ctrl[i] for i in range(nu)]
     ax = None if aux is None else [aux[i] for i in range(aux.shape[0])]
-    qpn, qvn, res = step_body(qp, qv, ct, t, ax)
+    axd = None if aux is None else (lambda i: aux[i])
+    qpn, qvn, res = step_body(qp, qv, ct, t, ax, aux_dyn=axd)
     out = (torch.stack(qpn), torch.stack(qvn))
     return out + ((torch.stack(res),) if res is not None else ())
 
@@ -1411,7 +1504,9 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
     qv = [qvel[i] for i in range(nv)]
     ct = [ctrl[i] for i in range(nu)]
     ax = None if aux is None else [aux[i] for i in range(aux.shape[0])]
-    _, _, res = step_body(qp, qv, ct, t, ax, derived_only=True)
+    axd = None if aux is None else (lambda i: aux[i])
+    _, _, res = step_body(qp, qv, ct, t, ax, derived_only=True,
+                          aux_dyn=axd)
     return torch.stack(res)
 
   rollout.plain = rollout_plain

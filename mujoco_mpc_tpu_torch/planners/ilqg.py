@@ -32,6 +32,7 @@ refuses raises `NotImplementedError` there instead of giving way silently.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import logging
 from typing import Optional
 
@@ -586,19 +587,19 @@ class ILQGPlanner:
     if not lane:
       return None
     from mujoco_mpc_tpu_torch.ops import step_lane
-    m = self.m
     contact_geoms = getattr(task, "plan_contact_geoms", None)
     lane_modes = getattr(task, "lane_modes", None)
+    missing = step_lane.unsupported(self.m, ground_only=True)
     refused = None
     if not hasattr(task, "lane_residual_spec"):
       refused = (f"task {type(task).__name__} has no lane_residual_spec "
                  "(its residual is not written for the rollout kernel)")
-    elif m.na != 0:
-      refused = f"the model has activation states (na={m.na})"
-    elif not step_lane.supports(m, ground_only=True,
-                                contact_geoms=contact_geoms):
-      refused = "the model is outside the rollout kernel's class " \
-          "(step_lane.supports)"
+    elif "horizon" in inspect.signature(task.lane_residual_spec).parameters:
+      refused = (f"task {type(task).__name__}'s lane residual reads per-step "
+                 "aux rows (its spec takes the horizon), which the feedback "
+                 "rollouts do not carry")
+    elif missing is not None:
+      refused = f"the model is outside the rollout kernel's class: {missing}"
     elif lane_modes is not None and int(task.mode) not in lane_modes:
       refused = (f"task mode {int(task.mode)} is not among the modes its "
                  f"lane residual covers {tuple(lane_modes)}")

@@ -25,6 +25,20 @@ ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          os.pardir, "assets")
 
 
+def subtree_bodies(m, root: int) -> list:
+  """Bodies of the subtree rooted at `root` (itself included), in index
+  order."""
+  parent = np.asarray(m.body_parentid)
+  out = []
+  for b in range(m.nbody):
+    a = b
+    while a not in (0, root):
+      a = int(parent[a])
+    if a == root:
+      out.append(b)
+  return out
+
+
 class Task:
   """Base class for tasks. Subclasses add residual hooks."""
 

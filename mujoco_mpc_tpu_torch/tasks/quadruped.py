@@ -117,20 +117,13 @@ class QuadrupedFlat(base.Task):
     body_mass = m.body_mass.cpu().numpy()
     body_inertia = m.body_inertia.cpu().numpy()
     body_iquat = m.body_iquat.cpu().numpy()
-    parent = np.asarray(m.body_parentid)
     trunk = self._trunk
     feet = [(gid, int(m.geom_bodyid[gid])) for gid in self._feet_geoms]
     head_b = int(m.site_bodyid[self._head])
     head_p = [float(v) for v in site_pos[self._head]]
     home = self._home_joints
     gains = np.tile(np.asarray(POSTURE_GAIN), 4)
-    ids = []
-    for b in range(m.nbody):
-      a = b
-      while a not in (0, trunk):
-        a = int(parent[a])
-      if a == trunk:
-        ids.append(b)
+    ids = base.subtree_bodies(m, trunk)
     total_mass = max(sum(float(body_mass[b]) for b in ids), 1e-12)
     pi = float(np.pi)
     fall_time = float(np.sqrt(2.0 * HEIGHT_QUADRUPED / 9.81))

@@ -13,8 +13,11 @@ _REGISTRY: Dict[str, Callable] = {}
 
 _TASK_MODULES = [
     ("cartpole", ["Cartpole"]),
+    ("humanoid", ["HumanoidStand", "HumanoidWalk"]),
+    ("quadrotor", ["Quadrotor"]),
     ("quadruped", ["QuadrupedFlat"]),
     ("swimmer", ["Swimmer"]),
+    ("tracking", ["HumanoidTracking"]),
 ]
 
 

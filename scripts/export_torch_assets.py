@@ -28,6 +28,10 @@ ASSETS = {
     "Quadruped Flat": "quadruped_flat.npz",
     "Cartpole": "cartpole.npz",
     "Swimmer": "swimmer.npz",
+    "Humanoid Stand": "humanoid_stand.npz",
+    "Humanoid Walk": "humanoid_walk.npz",
+    "Humanoid Track": "humanoid_track.npz",
+    "Quadrotor": "quadrotor.npz",
 }
 
 

@@ -35,7 +35,8 @@ from mujoco_mpc_tpu_torch.planners import ilqg as tilqg
 from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from tests import models as tm
-from tests.torch_port_helpers import (BALL, LIMITED, MIXED_CONTACTS,
+from tests.torch_port_helpers import (BALL, DROP, DROP_GEOMS, LIMITED,
+                                      MIXED_CONTACTS, clearances,
                                       models_from_xml, riccati_problem)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -256,6 +257,97 @@ def test_cuda_source_swimmer_feedback_with_fluid_matches_plain(tmp_path):
   ctrl = want[:, nq + nv:nq + nv + nu]
   assert (ctrl.abs() == 1.0).any() and (ctrl.abs() < 1.0).any()
   torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("cone", ["pyramidal", "elliptic"])
+@pytest.mark.parametrize("kind", ["capsule", "box"])
+def test_cuda_source_capsule_and_box_ground_match_plain(kind, cone, tmp_path):
+  """Capsule ends and box corners as contact table entries: a tilted free
+  capsule / box pressed 0.5 to 3 mm into the floor, sliding, 8 steps."""
+  _, pm, mjm = models_from_xml(DROP.format(cone=cone, geom=DROP_GEOMS[kind]))
+  kern = tstep.build_rollout_kernel(pm, 8, 1, _table_float=np.float64)
+  assert kern.build_defines()["LR_NCON"] == {"capsule": 2, "box": 8}[kind]
+  rng = np.random.default_rng(8)
+  k = 4
+  qpos = np.tile(mjm.qpos0[:, None], (1, k))
+  qpos[3:7] += 0.3 * rng.standard_normal((4, k))
+  qpos[3:7] /= np.linalg.norm(qpos[3:7], axis=0)
+  qpos[2] -= clearances(pm, qpos) + np.array([0.0005, 0.001, 0.002, 0.003])
+  qpos = torch.as_tensor(qpos)
+  qvel = _rand(rng, pm.nv, k, scale=0.3)
+  values = torch.zeros((1, k), dtype=torch.float64)
+  want = kern.plain(qpos, qvel, values[:0])
+  got = torch.zeros_like(want)
+  _run_host(kern, [got], qpos, qvel, values, None, tmp_path)
+  assert torch.isfinite(want).all()
+  torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_cuda_source_quadrotor_site_transmission_matches_plain(tmp_path):
+  """Four site-transmission rotors, asymmetric thrusts, 12 steps, recorded
+  states and residual rows; one lane starts with its box core on the
+  floor (eight corner points)."""
+  pt = tregistry.get_task("Quadrotor", device="cpu")
+  spec = pt.lane_residual_spec()
+  horizon, p, k = 12, 3, 4
+  kern = tstep.build_rollout_kernel(pt.plan_model, horizon, p, residual=spec,
+                                    naux=spec["naux"],
+                                    _table_float=np.float64)
+  defs = kern.build_defines()
+  assert (defs["LR_SITE"], defs["LR_NCON"]) == (1, 8)
+  rng = np.random.default_rng(9)
+  qpos = np.tile(np.asarray(pt.home_qpos)[:, None], (1, k))
+  qpos[2] += 0.5 + 0.1 * rng.standard_normal(k)
+  qpos[3:7] += 0.1 * rng.standard_normal((4, k))
+  qpos[3:7] /= np.linalg.norm(qpos[3:7], axis=0)
+  qpos[:, 3] = [0, 0, 0.029, 1, 0, 0, 0]
+  qpos = torch.as_tensor(qpos)
+  qvel = _rand(rng, 6, k, scale=0.3)
+  values = torch.as_tensor(rng.uniform(0.5, 3.5, (p * 4, k)))
+  aux = torch.as_tensor(np.tile(np.array([0.3, -0.2, 1.5])[:, None], (1, k)))
+  want = kern.plain(qpos, qvel, values, aux)
+  got = torch.zeros_like(want)
+  _run_host(kern, [got], qpos, qvel, values, aux, tmp_path)
+  assert torch.isfinite(want).all()
+  torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["Humanoid Track", "Humanoid Stand"])
+def test_cuda_source_humanoid_cost_sums_match_plain(name, tmp_path):
+  """The humanoid specialisations of the slice's paths in cost-sum mode: 39
+  ground contact points (sphere, capsule ends, box corners), 21 limited
+  joints, the hand-written residuals; Track reads every target through
+  aux_at (per-step rows), Stand keeps its aux rows in registers. Standing
+  with the feet pressed into the floor, 6 steps."""
+  pt = tregistry.get_task(name, device="cpu")
+  horizon, p, k = 6, 2, 4
+  spec = pt.lane_residual_spec(horizon=horizon) \
+      if name == "Humanoid Track" else pt.lane_residual_spec()
+  cs = pt.cost_spec
+  kern = tstep.build_rollout_kernel(
+      pt.plan_model, horizon, p, residual=spec, naux=spec["naux"],
+      record_states=False, cost_terms=tuple(zip(cs.norm_types, cs.dims)),
+      _table_float=np.float64)
+  defs = kern.build_defines()
+  assert (defs["LR_NCON"], defs["LR_NPROW"], defs["LR_NSUP"]) == (39, 156, 15)
+  assert defs["LR_NAUXS"] == (0 if name == "Humanoid Track" else 2)
+  rng = np.random.default_rng(10)
+  d0 = pt.make_data().replace(time=torch.tensor(0.37))
+  aux = torch.cat([spec["make_aux"](d0, pt.residual_params),
+                   cs.norm_params[:, :2].reshape(-1)])
+  aux = aux.double()[:, None].repeat(1, k).contiguous()
+  qpos = np.tile(np.asarray(pt.home_qpos)[:, None], (1, k))
+  qpos[7:] += 0.05 * rng.standard_normal((21, k))
+  qpos[2] -= clearances(pt.plan_model, qpos) + 0.001 * np.arange(1, k + 1)
+  qpos = torch.as_tensor(qpos)
+  qvel = _rand(rng, 27, k, scale=0.1)
+  values = torch.as_tensor(rng.uniform(-0.5, 0.5, (p * 21, k)))
+  want = kern.plain(qpos, qvel, values, aux)
+  got = [torch.zeros_like(w) for w in want]
+  _run_host(kern, got, qpos, qvel, values, aux, tmp_path)
+  for g, w in zip(got, want):
+    assert torch.isfinite(w).all()
+    torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
 
 
 def _run_riccati_host(kern, prob, reg, tmp_path):

@@ -20,7 +20,8 @@ from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from tests.torch_port_helpers import to_np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
-TASKS = ["Quadruped Flat", "Cartpole", "Swimmer"]
+TASKS = ["Quadruped Flat", "Cartpole", "Swimmer", "Humanoid Stand",
+         "Humanoid Walk", "Humanoid Track", "Quadrotor"]
 
 
 def _exporter():
@@ -135,7 +136,9 @@ def test_task_from_record_and_data_from_numpy():
   d = convert.data_from_numpy(pt.model, qpos=[0.1, 0.2], time=0.5)
   assert d.qpos.tolist() == pytest.approx([0.1, 0.2])
   assert float(d.time) == 0.5 and d.qvel.shape == (2,)
-  assert tregistry.task_names() == ["Cartpole", "Quadruped Flat", "Swimmer"]
+  assert tregistry.task_names() == [
+      "Cartpole", "Humanoid Stand", "Humanoid Track", "Humanoid Walk",
+      "Quadrotor", "Quadruped Flat", "Swimmer"]
   with pytest.raises(KeyError):
     tregistry.get_task("Walker", device="cpu")
 
@@ -203,9 +206,11 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
     assert hit is None, f"{path}: {hit.group(0)!r}"
   csrc = os.path.join(ROOT, "mujoco_mpc_tpu_torch", "ops", "csrc")
   assert sorted(os.listdir(csrc)) == [
-      "chol_solve_lanes.cu", "lane_math.cuh", "lane_rollout.cu",
-      "residual_none.cuh", "residual_quadruped.cuh", "residual_swimmer.cuh",
-      "riccati_backward.cu", "score_fused.cu"]
+      "chol_solve_lanes.cu", "humanoid_common.cuh", "lane_math.cuh",
+      "lane_rollout.cu", "residual_humanoid.cuh", "residual_none.cuh",
+      "residual_quadrotor.cuh", "residual_quadruped.cuh",
+      "residual_swimmer.cuh", "residual_tracking.cuh", "riccati_backward.cu",
+      "score_fused.cu"]
   for name in os.listdir(csrc):
     with open(os.path.join(csrc, name)) as f:
       text = f.read()

@@ -144,23 +144,27 @@ def test_two_elliptic_contacts_of_different_condim_match_jax():
 
 
 def test_unported_model_classes_are_refused_not_dropped():
+  # capsule and box ground contacts are in the kernel's class; what is not
+  # (activation states, friction loss, body-body pairs) is refused with
+  # its name, never dropped
   jm, pm, _ = models_from_xml(tm.CAPSULE_FLOOR)
-  assert not tstep.supports(pm, ground_only=True)
-  with pytest.raises(NotImplementedError):
-    tstep.build_rollout_kernel(pm, 4, 1)
+  assert tstep.supports(pm, ground_only=True) and jstep.supports(
+      jm, ground_only=True)
+  assert not tstep.supports(pm)             # pairs, unless ground only
+  _, act, _ = models_from_xml(tm.ACTLIMITED)
+  assert not tstep.supports(act, ground_only=True)
+  with pytest.raises(NotImplementedError, match="activation states"):
+    tstep.build_rollout_kernel(act, 4, 1)
   quad = tregistry.get_task("Quadruped Flat", device="cpu").plan_model
   assert not tstep.supports(quad)                      # self-collisions
-  assert not tstep.supports(quad, ground_only=True)    # capsule/box ground
-  assert tstep.supports(quad, ground_only=True, contact_types=(GEOM_SPHERE,))
-  with pytest.raises(NotImplementedError):
-    tstep.build_rollout_kernel(quad, 4, 1)
+  assert tstep.supports(quad, ground_only=True)        # capsule/box ground
   # a fluid medium is inside the kernel class; friction loss is not
   fluid = quad.replace(opt=quad.opt.replace(density=torch.tensor(1.2)))
-  assert tstep.supports(fluid, ground_only=True,
-                        contact_types=(GEOM_SPHERE,))
+  assert tstep.supports(fluid, ground_only=True)
   lossy = quad.replace(dof_frictionloss=torch.full((quad.nv,), 0.1))
-  assert not tstep.supports(lossy, ground_only=True,
-                            contact_types=(GEOM_SPHERE,))
+  assert not tstep.supports(lossy, ground_only=True)
+  with pytest.raises(NotImplementedError, match="friction loss"):
+    tstep.build_rollout_kernel(lossy, 4, 1, contact_types=(GEOM_SPHERE,))
   with pytest.raises(ValueError):           # feedback mode records states
     tstep.build_rollout_kernel(
         tregistry.get_task("Cartpole", device="cpu").plan_model, 4, 1,

@@ -83,6 +83,28 @@ MIXED_CONTACTS = """
 """
 
 
+# a free body on the floor, given one ground geom (DROP_GEOMS): off-axis,
+# so that the body-local contact points go through geom_quat
+DROP = """
+<mujoco model="drop">
+  <option timestep="0.002" gravity="0 0 -9.81" cone="{cone}"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="body" pos="0 0 0.5">
+      <freejoint/>
+      {geom}
+    </body>
+  </worldbody>
+</mujoco>
+"""
+DROP_GEOMS = {
+    "capsule": '<geom type="capsule" fromto="-0.15 0 0 0.15 0.05 0.02" '
+               'size="0.04" mass="0.6" friction="0.9 0.01 0.001"/>',
+    "box": '<geom type="box" size="0.08 0.05 0.03" euler="10 20 30" '
+           'pos="0.01 0 0" mass="0.7"/>',
+}
+
+
 def to_np(x) -> np.ndarray:
   if isinstance(x, torch.Tensor):
     return x.detach().cpu().numpy()
@@ -124,3 +146,11 @@ def riccati_problem(horizon, ndx, nu, seed, tight_limits):
   lo = np.full((t - 1, nu), -lim, f)
   hi = np.full((t - 1, nu), lim, f)
   return a, b, cx, cu, cxx, cxu, cuu, lo, hi
+
+
+def clearances(pm, qpos) -> np.ndarray:
+  """(K,) lowest clearance of the rollout kernel's ground contact points
+  for each column of qpos (numpy)."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  return np.array([step_lane.contact_clearance(pm, tt(qpos[:, k]))
+                   for k in range(qpos.shape[1])])
