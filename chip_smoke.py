@@ -9,7 +9,7 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
   2. `build`   — compiles every CUDA kernel of the paths below (the
      rollout kernel in its three output modes, in its feedback mode with
      fluid, in cost-sum mode with fluid, and the humanoid and quadrotor
-     builds of phase 7, the Riccati kernel at every size
+     builds of phases 7 and 8, the Riccati kernel at every size
      and regularisation checked here, the fused scoring kernel at each
      ported task's cost, the batched Cholesky kernel at each size checked
      here) from ops/csrc/, all `nvcc` processes side by side, and prints
@@ -58,8 +58,10 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      kernel);
   7. the rollout kernel's capsule/box ground contacts, site transmission
      and per-step aux rows: `kernels` cases `humanoid_states_step_by_step`
-     (K=512, perturbed poses on the floor, every step repeated by the plain
-     version from the kernel's state beside the nudged control),
+     (K=512, perturbed poses on the floor, half standing, half lying on
+     capsule limbs; each step of the 12-step window with the most active
+     capsule-ground rows repeated by the plain version from the kernel's
+     state beside the nudged control),
      `humanoid_track_cost_sums`, `humanoid_stand_cost_sums` and
      `quadrotor_cost_sums` (each path's own build at its shape on its own
      inputs, returns against the plain version's, times and bound; Track's
@@ -70,9 +72,27 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      `quadrotor_path` (its own configuration: K=30, H=61, P=5), each on the
      lane planner with one rollout launch and no host synchronisation an
      iteration;
-  8. prints one JSON line describing every kernel (the rollout kernel by
-     build: main path, feedback, humanoid track, humanoid stand, site), the
-     card line, and `{"ok": true, ...}` as the last line.
+  8. the rollout kernel's body-body contact pairs: `body_pairs` (each
+     build's table bytes, whether its contact tables are in global memory,
+     ptxas lines), `kernels` cases `rubik_cost_sums`,
+     `cube_solving_cost_sums`, `hand_reorient_cost_sums` (each path's own
+     build at its shape, K=512, H=16, on its own inputs, returns against the
+     plain version's, times and bound) and
+     `{rubik_boxbox,rubik_elliptic,cube_solving,hand_reorient}_states_step_by_step`
+     (states builds at K=512, H=3 from perturbed home poses; Rubik at H=2
+     with its path's pairs and its box-box pairs, its knobs enlarged until
+     adjacent knobs interpenetrate, and with elliptic cones; every step
+     repeated by the plain version beside the nudged control, the recorded
+     residual rows' returns against the plain version's rows at the same
+     states, the plain rollout's time, the active rows by pair type);
+     then `rubik_path` (BASELINE config 5: Rubik, K=512, H=16, P=3, 10
+     chained iterations), `cube_solving_path` and `hand_reorient_path` (the
+     same K and H) on the lane planner;
+  9. prints one JSON line describing every kernel (the rollout kernel by
+     build: main path, feedback, humanoid track, humanoid stand, site,
+     rubik, cube solving, hand reorient, and the checks-only builds rubik
+     box-box and rubik elliptic with `on_path: false`), the card line, and
+     `{"ok": true, ...}` as the last line.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
 JAX or the JAX package.
@@ -96,8 +116,9 @@ K_MAIN, HORIZON, SPLINE_POINTS, EXPLORATION = 4096, 36, 3, 0.04
 ITERATIONS = 10
 ILQG_HORIZON, ILQG_ITERATIONS = 40, 10
 # iterations repeated with both iLQG kernels checked on the planner's own
-# inputs (the first 5 of the timed 10: the check costs ~15 s an iteration)
-ILQG_CHECKED_ITERATIONS = 5
+# inputs (the first 2 of the timed 10: the check costs ~15 s an iteration;
+# 5 until the body-pair phase made the script pass 1,000 of its 1,200 s)
+ILQG_CHECKED_ITERATIONS = 2
 
 # Tolerances, kernel vs its plain version on the same inputs, both float32
 # on the card. The two differ in summation order only, but the rollout is
@@ -151,7 +172,9 @@ TOL_SCORE = 2e-4
 # batched Cholesky solve vs its plain version: the JAX suite's bar
 TOL_CHOL = 2e-3
 CEM_ITERATIONS = SG_ITERATIONS = CARTPOLE_ITERATIONS = 10
-ROBUST_ITERATIONS = ILQS_ITERATIONS = 5
+# robust: 13-19 s an iteration, host-bound (2, not 5, since the body-pair
+# phase)
+ROBUST_ITERATIONS, ILQS_ITERATIONS = 2, 5
 CHOL_SIZES = ((4, 128), (18, 128), (7, 256), (8, 16), (18, 4096))
 # phase 7: Humanoid Track at BASELINE config 4 (scripts/bench_configs.py:245)
 K_HUMANOID, HORIZON_HUMANOID = 512, 25
@@ -162,6 +185,24 @@ K_QUADROTOR_CHECK = 256
 # (the port's CPU tests hold the plain version to the JAX package's step by
 # the same bars)
 TOL_STEP_QPOS, TOL_STEP_QVEL = 2e-4, 2e-3
+# phase 8: body-body pairs. Rubik at BASELINE config 5
+# (scripts/bench_configs.py:246: K=512, H=16), Cube Solving (:248) and Hand
+# Reorient (:250) at the same K and H, each on its own path build; the
+# step-by-step checks, Rubik with its box-box pairs and Rubik with elliptic
+# cones on states builds at a small shape
+K_BODY, HORIZON_BODY = 512, 16
+RUBIK_ITERATIONS, CUBE_SOLVING_ITERATIONS, HAND_REORIENT_ITERATIONS = 10, 5, 5
+K_BODY_CHECK, HORIZON_BODY_CHECK = 512, 3
+# Rubik's knobs never reach each other as the faces turn, so its box-box
+# build enlarges them to cubes of this half-size: the 12 pairs of adjacent
+# knobs then interpenetrate by up to ~5 mm, and the faces are turned by
+# BOXBOX_FACE_STD (radians) at random
+BOXBOX_KNOB_HALF, BOXBOX_FACE_STD = 0.019, 0.2
+# the humanoid's states build is checked step by step over a window of its
+# steps (all 24 until the body-pair phase made the script pass 1,000 s)
+HUMANOID_CHECK_STEPS = 12
+BODY_TASKS = {"rubik": "Rubik", "cube_solving": "Cube Solving",
+              "hand_reorient": "Hand Reorient"}
 # the robust path's on-path checks: at the task's OU wrench noise (std 0.2)
 # the shortest sane prefix of the 16 re-rolls over the steps (23 and 24 in
 # the CPU reading and a card run); at std 0.05 the re-rolls survive (16 of
@@ -462,14 +503,17 @@ def lane_aux(task, spec, d0, k, cost_terms):
   return aux[:, None].repeat(1, k).contiguous()
 
 
-def step_by_step(kern, rec, values, aux, p, nq, nv, gen):
+def step_by_step(kern, rec, values, aux, p, nq, nv, gen, window=None,
+                 first=None):
   """Each step of a recorded rollout but the last (whose outcome the record
-  does not hold) repeated by the plain version from the kernel's own
-  pre-step state, and once more from that state nudged by
-  CONTROL_PERTURBATION (relative): per (step, candidate) pair, whether the
-  next state is within TOL_STEP_QPOS / TOL_STEP_QVEL (absolute), for the
-  kernel and for the control; pairs of rollouts that have blown up are left
-  out."""
+  does not hold; only the steps of `window` = range(start, stop), if given)
+  repeated by the plain version from the kernel's own pre-step state, and
+  once more from that state nudged by CONTROL_PERTURBATION (relative): per
+  (step, candidate) pair, whether the next state is within TOL_STEP_QPOS /
+  TOL_STEP_QVEL (absolute), for the kernel and for the control; pairs of
+  rollouts that have blown up are left out. `first`, if given, is the plain
+  version's state after step 0 from the same initial state (a plain rollout
+  of the same inputs), taken in place of repeating that step."""
   horizon, _, k = rec.shape
   nu = values.shape[0] // p
 
@@ -482,11 +526,12 @@ def step_by_step(kern, rec, values, aux, p, nq, nv, gen):
         ((a[nq:] - b[nq:]).abs().amax(dim=0) <= TOL_STEP_QVEL)
 
   ok_k, ok_c, sane, err_q, err_v = [], [], [], [], []
-  for t in range(horizon - 1):
+  for t in window or range(horizon - 1):
     node = min(int(t * p / max(horizon - 1, 1)), p - 1)
     ctrl = values[node * nu:(node + 1) * nu]
     qp, qv = rec[t, :nq], rec[t, nq:nq + nv]
-    want = torch.cat(kern.step_array(qp, qv, ctrl, t, aux)[:2])
+    want = first if t == 0 and first is not None else \
+        torch.cat(kern.step_array(qp, qv, ctrl, t, aux)[:2])
     ctl = torch.cat(kern.step_array(nudged(qp), nudged(qv), ctrl, t,
                                     aux)[:2])
     after = rec[t + 1, :nq + nv]
@@ -510,6 +555,25 @@ def step_by_step(kern, rec, values, aux, p, nq, nv, gen):
               median_err_qvel=float(torch.stack(err_v)[sane].median()),
               max_err_qpos=float(torch.stack(err_q)[sane].max()),
               max_err_qvel=float(torch.stack(err_v)[sane].max()))
+
+
+def active_rows(m, gaps):
+  """Rows of the contact points of `gaps` (step_lane.contact_gaps) whose
+  gap is negative, summed over the candidates, by pair type
+  ("plane-capsule", "capsule-box", ...): one for condim 1, else 2 (condim
+  - 1) pyramidal or condim in an elliptic cone block."""
+  from mujoco_mpc_tpu_torch.physics.model import (GEOM_BOX, GEOM_CAPSULE,
+                                                  GEOM_PLANE, GEOM_SPHERE)
+
+  names = {GEOM_PLANE: "plane", GEOM_SPHERE: "sphere",
+           GEOM_CAPSULE: "capsule", GEOM_BOX: "box"}
+  elliptic = int(m.opt.cone) == 1
+  out = {}
+  for types, condim, gap in gaps:
+    per = 1 if condim == 1 else condim if elliptic else 2 * (condim - 1)
+    key = "-".join(names[t] for t in types)
+    out[key] = out.get(key, 0) + per * int((gap < 0).sum())
+  return out
 
 
 def kernel_bound(kern, args, outs, steps, k):
@@ -565,6 +629,57 @@ def cost_sums_check(kern, task, spec, d0, values, horizon):
   return row
 
 
+def lane_path(task, cfg, iterations, name, counters, card, device):
+  """The lane planner through the entry points a user calls: `iterations`
+  chained iterations (run_path), one rollout launch and no host
+  synchronisation an iteration, the best never worse than the nominal and
+  the nominal non-increasing. Returns the rollout kernel's launches."""
+  from mujoco_mpc_tpu_torch.ops import sampling_lane
+
+  planner = sampling_lane.LaneSamplingPlanner(task, cfg, device=device)
+  assert planner.routes == dict(rollouts="rollout_kernel",
+                                scoring="rollout_kernel"), planner.routes
+  infos, ms, launches, syncs = run_path(
+      planner, task.make_data(), iterations, counters,
+      torch.Generator(device=device).manual_seed(SEED))
+  nominal = [float(i["nominal_return"]) for i in infos]
+  best = [float(i["best_return"]) for i in infos]
+  emit(name, task=task.name, K=cfg.num_trajectory, H=cfg.horizon,
+       P=cfg.num_spline_points, exploration=cfg.exploration[0],
+       timestep=float(task.plan_model.opt.timestep),
+       iterations=iterations, ms_per_iteration=ms,
+       rollouts_per_s=cfg.num_trajectory / (ms * 1e-3), launches=launches,
+       host_syncs_per_iteration=syncs, routes=planner.routes,
+       best_return=best, nominal_return=nominal,
+       poisoned_per_iteration=[int((i["returns"] >= 1e6).sum())
+                               for i in infos], card=card)
+  assert launches == dict(rollout=iterations, riccati=0, scoring=0,
+                          cholesky=0), launches
+  assert syncs == 0, syncs
+  for i in range(iterations):
+    assert np.isfinite(nominal[i]) and best[i] <= nominal[i], \
+        (i, best[i], nominal[i])
+    assert i == 0 or nominal[i] <= nominal[i - 1], (i, nominal)
+  assert best[-1] < 1e6, best
+  return launches["rollout"]
+
+
+def rollout_entry(name, row, path, launches, **extra):
+  """The summary entry of one rollout-kernel build held to its plain
+  version by `cost_sums_check` (or `body_states_check`)."""
+  return dict(
+      name=f"step_lane.rollout[{name}]", route="cuda",
+      source="mujoco_mpc_tpu_torch/ops/csrc/lane_rollout.cu",
+      replaces="mujoco_mpc_tpu/ops/step_lane.py:184",
+      launches=launches.get(path, 0),
+      launches_by_path={path: launches[path]} if path in launches else {},
+      max_abs_err=row["max_abs_err_return"], ms=row["kernel_ms"],
+      plain_ms=row["plain_ms"],
+      bound_ms=max(row["bytes_ms"], row["ops_ms"]),
+      bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
+      else "operations", library_ms=None, **extra)
+
+
 def ground_site_aux_builds(device):
   """Phase 7's tasks and rollout-kernel builds: Humanoid Track (cost sums,
   per-step aux rows), Humanoid Stand (cost sums), the humanoid in states
@@ -602,7 +717,7 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   """Phase 7: the rollout kernel's capsule/box ground contacts, site
   transmission and per-step aux rows, then the three paths that need them.
   Returns the summary entries of the paths' three cost-sum builds."""
-  from mujoco_mpc_tpu_torch.ops import sampling_lane, step_lane
+  from mujoco_mpc_tpu_torch.ops import step_lane
   from mujoco_mpc_tpu_torch.planners import sampling
 
   rng = np.random.default_rng(SEED + 4)
@@ -623,13 +738,20 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   d0 = track.make_data()
   values = planner_candidates(track, K_HUMANOID, p_h, expl_h, rng, device)
 
-  # (l) humanoid, recorded states, step by step: perturbed standing poses
-  # lowered onto the floor (box feet 1 mm in, more or less with the joint
-  # noise), falling and folding onto capsule limbs over the horizon
+  # (l) humanoid, recorded states, step by step: perturbed poses lowered
+  # onto the floor (the lowest contact point 1 mm in, more or less with the
+  # joint noise), half of them standing on their box feet, half lying on
+  # their backs on capsule limbs; the window of HUMANOID_CHECK_STEPS steps
+  # with the most active capsule-ground rows is checked
   kern = kernels["humanoid_states"]
-  home = d0.qpos.clone()
-  home[2] -= step_lane.contact_clearance(hm, home) + 0.001
-  qpos0 = home[:, None].repeat(1, K_HUMANOID)
+  half = K_HUMANOID // 2
+  poses = []
+  for quat in ((1.0, 0.0, 0.0, 0.0), (np.sqrt(0.5), 0.0, np.sqrt(0.5), 0.0)):
+    pose = d0.qpos.clone()
+    pose[3:7] = torch.tensor(quat, device=device)
+    pose[2] -= step_lane.contact_clearance(hm, pose) + 0.001
+    poses.append(pose[:, None].repeat(1, half))
+  qpos0 = torch.cat(poses, dim=1)
   qpos0[7:] += torch.as_tensor(0.01 * rng.standard_normal(
       (hm.nu, K_HUMANOID)).astype(np.float32)).to(device)
   qpos0[2] += torch.as_tensor(rng.uniform(-0.002, 0.002, K_HUMANOID).astype(
@@ -641,10 +763,20 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   rec = kern(qpos0, qvel0, values, aux)
   torch.cuda.synchronize()
   assert rec.shape == (HORIZON_HUMANOID, nq + nv + t_spec["dim"], K_HUMANOID)
-  row = step_by_step(kern, rec, values, aux, p_h, nq, nv, gen)
+  rows = [active_rows(hm, step_lane.contact_gaps(hm, rec[t, :nq]))
+          for t in range(HORIZON_HUMANOID - 1)]
+  capsule = [r.get("plane-capsule", 0) for r in rows]
+  start = max(range(HORIZON_HUMANOID - HUMANOID_CHECK_STEPS),
+              key=lambda s_: sum(capsule[s_:s_ + HUMANOID_CHECK_STEPS]))
+  window = range(start, start + HUMANOID_CHECK_STEPS)
+  row = step_by_step(kern, rec, values, aux, p_h, nq, nv, gen, window)
   emit("kernels", case="humanoid_states_step_by_step", K=K_HUMANOID,
-       H=HORIZON_HUMANOID, torso_z_min=float(rec[:, 2].min()),
+       H=HORIZON_HUMANOID, steps_checked=[window.start, window.stop],
+       active_rows={key: sum(rows[t].get(key, 0) for t in window)
+                    for key in rows[0]},
+       torso_z_min=float(rec[window.start:window.stop + 1, 2].min()),
        tol_qpos=TOL_STEP_QPOS, tol_qvel=TOL_STEP_QVEL, **row)
+  assert sum(capsule[t] for t in window) > 0, capsule
   assert row["left_out_pairs"] <= TOL_NONFINITE_SHARE * rec[:, 0].numel()
   assert row["passes"], row
 
@@ -705,61 +837,240 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   assert float(rec[:, 2].min()) > 0.1 and q_row["left_out_pairs"] == 0
   assert q_row["share_within"] >= 1.0 - TOL_RETURN_SHARE, q_row
 
-  # paths: the lane planner through the entry points a user calls
-  def lane_path(task, cfg, iterations, name):
-    planner = sampling_lane.LaneSamplingPlanner(task, cfg, device=device)
-    assert planner.routes == dict(rollouts="rollout_kernel",
-                                  scoring="rollout_kernel"), planner.routes
-    infos, ms, launches, syncs = run_path(
-        planner, task.make_data(), iterations, counters,
-        torch.Generator(device=device).manual_seed(SEED))
-    nominal = [float(i["nominal_return"]) for i in infos]
-    best = [float(i["best_return"]) for i in infos]
-    emit(name, task=task.name, K=cfg.num_trajectory, H=cfg.horizon,
-         P=cfg.num_spline_points, exploration=cfg.exploration[0],
-         timestep=float(task.plan_model.opt.timestep),
-         iterations=iterations, ms_per_iteration=ms,
-         rollouts_per_s=cfg.num_trajectory / (ms * 1e-3), launches=launches,
-         host_syncs_per_iteration=syncs, routes=planner.routes,
-         best_return=best, nominal_return=nominal,
-         poisoned_per_iteration=[int((i["returns"] >= 1e6).sum())
-                                 for i in infos], card=card)
-    assert launches == dict(rollout=iterations, riccati=0, scoring=0,
-                            cholesky=0), launches
-    assert syncs == 0, syncs
-    for i in range(iterations):
-      assert np.isfinite(nominal[i]) and best[i] <= nominal[i], \
-          (i, best[i], nominal[i])
-      assert i == 0 or nominal[i] <= nominal[i - 1], (i, nominal)
-    assert best[-1] < 1e6, best
-    return launches["rollout"]
-
   launches = {}
-  launches["humanoid_track_path"] = lane_path(
-      track, h_cfg, HUMANOID_TRACK_ITERATIONS, "humanoid_track_path")
-  launches["humanoid_stand_path"] = lane_path(
-      stand, s_cfg, HUMANOID_STAND_ITERATIONS, "humanoid_stand_path")
-  launches["quadrotor_path"] = lane_path(
-      quad, q_cfg, QUADROTOR_ITERATIONS, "quadrotor_path")
-
-  def entry(name, path):
-    row = checked[name]
-    return dict(
-        name=f"step_lane.rollout[{name}]", route="cuda",
-        source="mujoco_mpc_tpu_torch/ops/csrc/lane_rollout.cu",
-        replaces="mujoco_mpc_tpu/ops/step_lane.py:184",
-        launches=launches[path], launches_by_path={path: launches[path]},
-        max_abs_err=row["max_abs_err_return"], ms=row["kernel_ms"],
-        plain_ms=row["plain_ms"],
-        bound_ms=max(row["bytes_ms"], row["ops_ms"]),
-        bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
-        else "operations", library_ms=None)
+  for task, cfg, iterations, path in (
+      (track, h_cfg, HUMANOID_TRACK_ITERATIONS, "humanoid_track_path"),
+      (stand, s_cfg, HUMANOID_STAND_ITERATIONS, "humanoid_stand_path"),
+      (quad, q_cfg, QUADROTOR_ITERATIONS, "quadrotor_path")):
+    launches[path] = lane_path(task, cfg, iterations, path, counters, card,
+                               device)
 
   # the quadrotor's build carries the site transmission
-  return [entry("humanoid_track", "humanoid_track_path"),
-          entry("humanoid_stand", "humanoid_stand_path"),
-          dict(entry("quadrotor", "quadrotor_path"),
+  return [rollout_entry("humanoid_track", checked["humanoid_track"],
+                        "humanoid_track_path", launches),
+          rollout_entry("humanoid_stand", checked["humanoid_stand"],
+                        "humanoid_stand_path", launches),
+          dict(rollout_entry("quadrotor", checked["quadrotor"],
+                             "quadrotor_path", launches),
                name="step_lane.rollout[site]")]
+
+
+def body_config(task):
+  """The task's sampling configuration at K_BODY, HORIZON_BODY (as the JAX
+  package's bench replaces them)."""
+  from mujoco_mpc_tpu_torch.planners import sampling
+
+  return dataclasses.replace(sampling.make_config(task),
+                             num_trajectory=K_BODY, horizon=HORIZON_BODY)
+
+
+def body_pair_builds(device):
+  """Phase 8's tasks and rollout-kernel builds: each hand task's path build
+  (cost sums at K_BODY, HORIZON_BODY; the planners find them built) and a
+  states build (HORIZON_BODY_CHECK); for Rubik, two states builds of two
+  steps in its place: with every body pair type (its path's and the 15
+  box-box knob pairs, 240 more corner points) on the model with enlarged
+  knobs (BOXBOX_KNOB_HALF), and with elliptic cones (condim 3 blocks at
+  impratio 10). `models` maps each states build to (task, model, the
+  build's contact selection)."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  tasks = {key: registry.get_task(name, device=device)
+           for key, name in BODY_TASKS.items()}
+  kernels, models = {}, {}
+  for key, task in tasks.items():
+    spec = task.lane_residual_spec()
+    p = body_config(task).num_spline_points
+    select = dict(contact_geoms=getattr(task, "plan_contact_geoms", None),
+                  body_pairs=True,
+                  body_pair_types=getattr(task, "plan_body_pair_types", None))
+    terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
+    m = task.plan_model
+    kernels[f"{key}_cost_sums"] = step_lane.build_rollout_kernel(
+        m, HORIZON_BODY, p, residual=spec, naux=spec["naux"],
+        record_states=False, cost_terms=terms, **select)
+    variants = [(key, m, select, HORIZON_BODY_CHECK)]
+    if key == "rubik":
+      knobs = [i for i, n in enumerate(m.names["geom"])
+               if n.startswith("knob_")]
+      size = m.geom_size.clone()
+      size[knobs] = BOXBOX_KNOB_HALF
+      elliptic = m.replace(opt=m.opt.replace(
+          cone=1, impratio=torch.tensor(10.0, device=device)))
+      variants = [("rubik_boxbox", m.replace(geom_size=size),
+                   dict(select, body_pair_types=None), 2),
+                  ("rubik_elliptic", elliptic, select, 2)]
+    for name, model, select_, horizon in variants:
+      models[name] = (task, model, select_)
+      kernels[f"{name}_states"] = step_lane.build_rollout_kernel(
+          model, horizon, p, residual=spec, naux=spec["naux"],
+          record_states=True, **select_)
+  return tasks, kernels, models
+
+
+def body_states_check(kern, task, m, select, face_std, rng, gen, device):
+  """One recorded rollout of a states build from perturbed home poses (the
+  hand joints by 0.05 rad, the cube by 2 mm, the faces by `face_std` rad,
+  random velocities) held to its plain version: every step repeated from
+  the kernel's own state beside the nudged control (step_by_step; the
+  first step's from the plain version's rollout of the same inputs, which
+  is also timed), and the returns of the recorded residual rows (the
+  task's cost, mean over the horizon) against those of the plain version's
+  rows at the same recorded states, controls and aux rows (teacher-forced:
+  the free-running returns of contact-rich rollouts part at gate flips,
+  which step_by_step measures). Returns the row to print, with the active
+  contact rows of the checked steps by pair type."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+
+  spec = task.lane_residual_spec()
+  p = body_config(task).num_spline_points
+  k, nq, nv, nu = K_BODY_CHECK, m.nq, m.nv, m.nu
+  d0 = task.make_data()
+  qpos0 = d0.qpos[:, None].repeat(1, k).clone()
+  nhand = task._nhand
+  qpos0[:nhand] += torch.as_tensor(0.05 * rng.standard_normal(
+      (nhand, k)).astype(np.float32)).to(device)
+  qpos0[nhand:nhand + 3] += torch.as_tensor(0.002 * rng.standard_normal(
+      (3, k)).astype(np.float32)).to(device)
+  if face_std:
+    qpos0[nhand + 7:] += torch.as_tensor(face_std * rng.standard_normal(
+        (nq - nhand - 7, k)).astype(np.float32)).to(device)
+  qvel0 = torch.as_tensor(0.05 * rng.standard_normal((nv, k)).astype(
+      np.float32)).to(device)
+  values = planner_candidates(task, k, p, body_config(task).exploration[0],
+                              rng, device)
+  aux = lane_aux(task, spec, d0, k, None)
+  args = (qpos0.contiguous(), qvel0.contiguous(), values, aux)
+  rec = kern(*args)
+  torch.cuda.synchronize()
+  horizon = rec.shape[0]
+  assert torch.equal(rec[0, :nq + nv], torch.cat(args[:2]))
+  t0 = time.perf_counter()
+  rec_p = kern.plain(*args)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t0) * 1e3
+  t0 = time.perf_counter()
+  rows_p = []
+  for t in range(horizon):
+    node = min(int(t * p / max(horizon - 1, 1)), p - 1)
+    rows_p.append(kern.residual_array(rec[t, :nq], rec[t, nq:nq + nv],
+                                      values[node * nu:(node + 1) * nu], t,
+                                      aux))
+  torch.cuda.synchronize()
+  rows_ms = (time.perf_counter() - t0) * 1e3
+  cs = task.cost_spec
+  ret = cs.cost(rec[:, nq + nv:].movedim(1, -1)).mean(dim=0)
+  ret_p = cs.cost(torch.stack(rows_p).movedim(1, -1)).mean(dim=0)
+  ok = torch.isfinite(ret) & torch.isfinite(ret_p)
+  rel = ((ret - ret_p).abs() / torch.clamp(ret_p.abs(), min=1.0))[ok]
+  steps = step_by_step(kern, rec, values, aux, p, nq, nv, gen,
+                       first=rec_p[1, :nq + nv])
+  rows = {}
+  for t in range(horizon - 1):
+    for key, n in active_rows(m, step_lane.contact_gaps(
+        m, rec[t, :nq], **select)).items():
+      rows[key] = rows.get(key, 0) + n
+  nb, nf, bytes_ms, ops_ms = kernel_bound(kern, args, (rec,), horizon, k)
+  row = dict(K=k, H=horizon,
+             max_abs_err_return=float((ret - ret_p).abs()[ok].max()),
+             median_rel=float(rel.median()), max_rel=float(rel.max()),
+             share_over_tol=float((rel > TOL_RETURN_REL).float().mean()),
+             tol_return_rel=TOL_RETURN_REL, tol_share=TOL_RETURN_SHARE,
+             nonfinite=int((~ok).sum()), residual_rows_plain_ms=rows_ms,
+             kernel_ms=time_cuda(lambda: kern(*args), 5), plain_ms=plain_ms,
+             bytes=nb, flops=nf, bytes_ms=bytes_ms, ops_ms=ops_ms,
+             active_rows=rows, tol_qpos=TOL_STEP_QPOS,
+             tol_qvel=TOL_STEP_QVEL, **steps)
+  assert row["nonfinite"] <= TOL_NONFINITE_SHARE * k, row
+  assert row["share_over_tol"] <= TOL_RETURN_SHARE, row
+  assert steps["left_out_pairs"] <= TOL_NONFINITE_SHARE * steps["pairs"], row
+  assert steps["passes"], row
+  return row
+
+
+def body_pairs(tasks, kernels, models, counters, card, device):
+  """Phase 8: body-body contact pairs. Each hand task's path build held to
+  its plain version at the path's shape, the states builds step by step
+  (Rubik also with its box-box pairs and with elliptic cones), then the
+  three paths on the lane planner. Returns the summary entries."""
+  from mujoco_mpc_tpu_torch.ops import _build
+
+  rng = np.random.default_rng(SEED + 5)
+  gen = torch.Generator(device=device).manual_seed(SEED + 5)
+  rubik = tasks["rubik"]
+  rm = rubik.plan_model
+  cfg = body_config(rubik)
+  assert (rm.nq, rm.nv, rm.nu, cfg.num_spline_points, cfg.exploration[0],
+          float(rm.opt.timestep)) == (22, 21, 9, 3, 0.15,
+                                      float(np.float32(0.01)))
+  defs = {name: k.build_defines() for name, k in kernels.items()}
+  # the plan model's 74 ground points (9 capsules, 7 boxes) and 156 body
+  # points (30 capsule-capsule, 63 capsule-box pairs); 240 more corner
+  # points with the box-box knob pairs
+  assert (defs["rubik_cost_sums"]["LR_NCON"],
+          defs["rubik_cost_sums"]["LR_NBCON"]) == (74, 156)
+  assert defs["rubik_boxbox_states"]["LR_NBCON"] == 156 + 240
+  assert defs["rubik_elliptic_states"]["LR_NECON"] == 230
+  ptxas = {name: _build.BUILD_LOG[_build.library_path(
+      "lane_rollout.cu", d)[0]]["ptxas"] for name, d in defs.items()}
+  tables = {name: dict(bytes=len(kernels[name].tables()),
+                       global_memory=bool(d["LR_CTAB_GLOBAL"]),
+                       ncon=d["LR_NCON"], nbcon=d["LR_NBCON"],
+                       nprow=d["LR_NPROW"], necon=d["LR_NECON"],
+                       nsup=d["LR_NSUP"])
+            for name, d in defs.items()}
+  emit("body_pairs", case="builds", tables=tables, ptxas=ptxas)
+
+  # (o) each path's own build at its shape, on its own inputs
+  checked = {}
+  for key, task in tasks.items():
+    c_ = body_config(task)
+    vals = planner_candidates(task, K_BODY, c_.num_spline_points,
+                              c_.exploration[0], rng, device)
+    checked[key] = cost_sums_check(kernels[f"{key}_cost_sums"], task,
+                                   task.lane_residual_spec(),
+                                   task.make_data(), vals, HORIZON_BODY)
+    emit("kernels", case=f"{key}_cost_sums", card=card,
+         all_within_tol=checked[key]["share_over_tol"] == 0.0,
+         **checked[key])
+
+  # (p) the states builds: step by step and returns at a small shape
+  states = {}
+  for name, (task, m, select) in models.items():
+    states[name] = body_states_check(
+        kernels[f"{name}_states"], task, m, select,
+        BOXBOX_FACE_STD if name == "rubik_boxbox" else 0.0, rng, gen, device)
+    emit("kernels", case=f"{name}_states_step_by_step", card=card,
+         **states[name])
+  # the box-box branch is held with rows in the solve
+  assert states["rubik_boxbox"]["active_rows"].get("box-box", 0) > 0, \
+      states["rubik_boxbox"]["active_rows"]
+
+  # (q) the paths
+  launches = {}
+  for key, iterations in (("rubik", RUBIK_ITERATIONS),
+                          ("cube_solving", CUBE_SOLVING_ITERATIONS),
+                          ("hand_reorient", HAND_REORIENT_ITERATIONS)):
+    task = tasks[key]
+    launches[f"{key}_path"] = lane_path(task, body_config(task), iterations,
+                                        f"{key}_path", counters, card,
+                                        device)
+
+  def extra(name):
+    return dict(ptxas=ptxas[name], tables=tables[name])
+
+  entries = [rollout_entry(key, checked[key], f"{key}_path", launches,
+                           shape=dict(K=K_BODY, H=HORIZON_BODY),
+                           **extra(f"{key}_cost_sums"))
+             for key in tasks]
+  # the checks-only builds (launched by no path)
+  entries += [rollout_entry(
+      name, states[name], None, launches, on_path=False,
+      shape=dict(K=states[name]["K"], H=states[name]["H"]),
+      **extra(f"{name}_states")) for name in ("rubik_boxbox",
+                                              "rubik_elliptic")]
+  return entries
 
 
 def main():
@@ -850,11 +1161,16 @@ def main():
       cart.plan_model, cart_cfg.horizon, cart_cfg.num_spline_points)
   e_tasks, e_kernels = ground_site_aux_builds(device)
   kernels.update(e_kernels)
+  f_tasks, f_kernels, f_models = body_pair_builds(device)
+  kernels.update(f_kernels)
   score_tasks = {"quadruped": quad, "swimmer": swim, "cartpole": cart}
   chol_ns = sorted({n for n, _ in CHOL_SIZES})
   t0 = time.perf_counter()
-  procs = {name: _build.start_build("lane_rollout.cu", k.build_defines())
-           for name, k in kernels.items()}
+  # the slowest nvcc runs (the body-pair builds) start first
+  order = list(f_kernels) + [n for n in kernels if n not in f_kernels]
+  procs = {name: _build.start_build("lane_rollout.cu",
+                                    kernels[name].build_defines())
+           for name in order}
   procs.update({
       f"riccati_{name}_reg{rt}": _build.start_build(
           "riccati_backward.cu", k.build_defines())
@@ -1786,7 +2102,11 @@ def main():
   # ---- 7. ground contacts, site transmission, per-step aux rows ----
   slice_e_entries = ground_site_aux(e_tasks, kernels, counters, card, device)
 
-  # ---- 8. summary lines ----
+  # ---- 8. body-body contact pairs ----
+  slice_f_entries = body_pairs(f_tasks, kernels, f_models, counters, card,
+                               device)
+
+  # ---- 9. summary lines ----
   csrc = "mujoco_mpc_tpu_torch/ops/csrc/"
   print(json.dumps({"kernels": [{
       "name": "step_lane.rollout",
@@ -1862,7 +2182,7 @@ def main():
       "bound_by": "bytes" if chol_main["bytes_ms"] >= chol_main["ops_ms"]
                   else "operations",
       "library_ms": chol_main["library_ms"],
-  }] + slice_e_entries}), flush=True)
+  }] + slice_e_entries + slice_f_entries}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

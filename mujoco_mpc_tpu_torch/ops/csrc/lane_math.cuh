@@ -105,8 +105,51 @@ __device__ __forceinline__ void motion_cross(const float* a, const float* b,
 // them. Each pivot is inverted once and multiplied with (one division a
 // column instead of one an entry). Measured on the flagship launch: rolled
 // loops 21.3 ms, unrolled 16.1 ms, with the reciprocal 11.1 ms.
+// Past kCholUnrollMax rows the loops stay rolled: fully unrolled at n = 32
+// (Cube Solving's nv) nvcc took 221 s for the rollout kernel and ptxas
+// spilled 14 KB; rolled, 25 s and 1 KB. Every size up to 28 (the humanoid's
+// 27 among them) keeps the unrolled form measured above.
+constexpr int kCholUnrollMax = 28;
+
+// chol_solve with rolled loops, the same arithmetic in the same order
+template <int N>
+__device__ void chol_solve_rolled(float (*A)[N], const float* b, float* x) {
+  float dinv[N];
+#pragma unroll 1
+  for (int j = 0; j < N; ++j) {
+    float s = A[j][j];
+    for (int k = 0; k < j; ++k) s -= A[j][k] * A[j][k];
+    const float d = sqrtf(fmaxf(s, 1e-10f));
+    A[j][j] = d;
+    dinv[j] = 1.0f / d;
+#pragma unroll 1
+    for (int i = j + 1; i < N; ++i) {
+      float si = A[i][j];
+      for (int k = 0; k < j; ++k) si -= A[i][k] * A[j][k];
+      A[i][j] = si * dinv[j];
+    }
+  }
+  float y[N];
+#pragma unroll 1
+  for (int i = 0; i < N; ++i) {
+    float s = b[i];
+    for (int k = 0; k < i; ++k) s -= A[i][k] * y[k];
+    y[i] = s * dinv[i];
+  }
+#pragma unroll 1
+  for (int i = N - 1; i >= 0; --i) {
+    float s = y[i];
+    for (int k = i + 1; k < N; ++k) s -= A[k][i] * x[k];
+    x[i] = s * dinv[i];
+  }
+}
+
 template <int N>
 __device__ void chol_solve(float (*A)[N], const float* b, float* x) {
+  if constexpr (N > kCholUnrollMax) {
+    chol_solve_rolled<N>(A, b, x);
+    return;
+  }
   float dinv[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {

@@ -8,17 +8,24 @@
 // site-transmission actuation, the task residual on the pre-step state,
 // joint-limit rows and ground contacts (a point per sphere centre, capsule
 // end or box corner against a world-static plane: pyramidal rows, condim-1
-// rows or elliptic cone blocks), Newton on the acceleration with a
-// safeguarded exact line search, implicit-damping Euler with quaternion
-// integration.
+// rows or elliptic cone blocks), with LR_BODY=1 body-body contacts (a point
+// per sphere / capsule segment pair, capsule end in a box or box corner in
+// the other box, its frame built from the normal, both bodies' Jacobians),
+// Newton on the acceleration with a safeguarded exact line search,
+// implicit-damping Euler with quaternion integration.
 //
 // One generic source. A build specialises it with compile-time dimensions
 // (-DLR_NQ=.. etc., listed below) and one task-residual header
 // (-DRESIDUAL_HEADER=...). Everything else about the model — tree tables,
 // body/joint/actuator constants, limit rows, per-contact frames and solver
-// parameters, the task's constants — is data in two __constant__ structs
-// (`TablesHead tb`, `TaskConst task_tb`) filled by the wrapper
-// (ops/step_lane.py packs the same field order). Candidates are the last, contiguous axis of every
+// parameters, the task's constants — is data in __constant__ structs
+// (`TablesHead tb` with the per-point and per-row `ContactTables` at its end,
+// `TaskConst task_tb`) filled by the wrapper (ops/step_lane.py packs the same
+// field order). When the tables outgrow the 64 KB of constant memory
+// (LR_CTAB_GLOBAL=1), the contact tables live in global memory instead,
+// where every thread of a warp reads the same address. They are reached as
+// `CT` either way. (A separate __constant__ symbol for them measured 5%
+// slower on the humanoid.) Candidates are the last, contiguous axis of every
 // array, so global loads and stores are coalesced.
 //
 // Bound on an H100: the latency of one long sequential per-thread program;
@@ -54,6 +61,9 @@
     !defined(LR_NJNT) || \
     !defined(LR_NLIMJ) || \
     !defined(LR_NCON) || \
+    !defined(LR_NBCON) || \
+    !defined(LR_BODY) || \
+    !defined(LR_CTAB_GLOBAL) || \
     !defined(LR_NPROW) || \
     !defined(LR_NECON) || \
     !defined(LR_NSUP) || \
@@ -82,7 +92,9 @@
 #define NBODY LR_NBODY
 #define NJNT LR_NJNT
 #define NLIMJ LR_NLIMJ
-#define NCON LR_NCON
+#define NCON LR_NCON     // ground contact points
+#define NBCON LR_NBCON   // body contact entries
+#define BODY LR_BODY
 #define NPROW LR_NPROW
 #define NECON LR_NECON
 #define NSUP LR_NSUP
@@ -108,7 +120,9 @@
 // aux rows a thread keeps in registers: the task's static rows, then the
 // norm parameters (global rows NAUX ..); per-step rows stay in global memory
 #define NAUXK ((NAUXS) + 2 * (NTERM))
-#define HAS_ROWS ((NLIMJ) > 0 || (NCON) > 0)
+// contact index ci: the ground points, then the body entries
+#define NCT ((NCON) + (NBCON))
+#define HAS_ROWS ((NLIMJ) > 0 || NCT > 0)
 #define NDX (2 * (NV))
 #define STRIDE (2 * (NU) + (NU) * NDX + (NQ) + (NV))
 
@@ -139,6 +153,54 @@ struct StepCtx {
   }
 };
 
+// Per contact point (index ci: ground points, then body entries) and per
+// row; field order and padded shapes mirror _pack_tables. All members are 4
+// bytes wide, so nesting it adds no padding.
+struct ContactTables {
+  int con_body[D1(NCON)];          // ground points: the body
+  int con_condim[D1(NCT)];
+  int con_nsup[D1(NCT)];
+  int con_sup[D1(NCT)][D1(NSUP)];  // supporting dofs (either body's)
+  int prow_con[D1(NPROW)];
+  int econ_con[D1(NECON)];
+  float con_geompos[D1(NCON)][3];  // ground points: body-local point
+  float con_radius[D1(NCON)];
+  float con_planepos[D1(NCON)][3];
+  float con_dirs[D1(NCON)][3][3];  // normal, tangent 1, tangent 2
+  float con_imp[D1(NCT)][9];
+  float con_incm[D1(NCT)];
+  float con_invw[D1(NCT)];         // clamped at 1e-12
+  float con_iw[D1(NCT)];           // pyramidal diagonal, clamped at 1e-12
+  float con_mu[D1(NCT)];           // elliptic mu_eff
+  float con_1pmu2[D1(NCT)];        // 1 + mu_eff^2
+  float con_scales[D1(NCT)][5];
+  float con_scales2[D1(NCT)][5];
+  float prow_smu[D1(NPROW)];       // sign * friction of the row's axis
+#if BODY
+  // body contact entries (ops/step_lane.py _body_plan): side a is a
+  // segment (centre, axis, half-length, radius; a sphere's half-length is
+  // 0) or a point of radius ra, side b a segment (BODY_SEG) or a box
+  // (BODY_BOX: centre, geom quaternion, half-sizes), both body-local; the
+  // normal points from body b1 (geom1's) to b2
+  int bc_kind[NBCON];
+  int bc_b1[NBCON];
+  int bc_b2[NBCON];
+  int bc_ba[NBCON];
+  int bc_bb[NBCON];
+  int bc_flip[NBCON];              // the point is geom2's: normal box -> point
+  float bc_pa[NBCON][3];
+  float bc_ra[NBCON];
+  float bc_pb[NBCON][3];
+  float bc_ua[NBCON][3];
+  float bc_ub[NBCON][3];
+  float bc_ha[NBCON];
+  float bc_hb[NBCON];
+  float bc_rb[NBCON];
+  float bc_qb[NBCON][4];
+  float bc_sb[NBCON][3];
+#endif
+};
+
 // Field order and padded shapes mirror _pack_tables in ops/step_lane.py.
 // All members are 4 bytes wide, so the struct has no padding.
 struct TablesHead {
@@ -163,12 +225,6 @@ struct TablesHead {
   int act_forcelimited[D1(NU)];
   int lim_qadr[D1(NLIMJ)];
   int lim_dadr[D1(NLIMJ)];
-  int con_body[D1(NCON)];
-  int con_condim[D1(NCON)];
-  int con_nsup[D1(NCON)];
-  int con_sup[D1(NCON)][D1(NSUP)];
-  int prow_con[D1(NPROW)];
-  int econ_con[D1(NECON)];
   int term_type[D1(NTERM)];
   int term_dim[D1(NTERM)];
   int body_dofmask[NBODY][D1(NV)];  // dof moves the body
@@ -200,19 +256,6 @@ struct TablesHead {
   float lim_margin[D1(NLIMJ)];
   float lim_invw[D1(NLIMJ)];
   float lim_imp[D1(NLIMJ)][9];
-  float con_geompos[D1(NCON)][3];
-  float con_radius[D1(NCON)];
-  float con_planepos[D1(NCON)][3];
-  float con_dirs[D1(NCON)][3][3];  // normal, tangent 1, tangent 2
-  float con_imp[D1(NCON)][9];
-  float con_incm[D1(NCON)];
-  float con_invw[D1(NCON)];        // clamped at 1e-12
-  float con_iw[D1(NCON)];          // pyramidal diagonal, clamped at 1e-12
-  float con_mu[D1(NCON)];          // elliptic mu_eff
-  float con_1pmu2[D1(NCON)];       // 1 + mu_eff^2
-  float con_scales[D1(NCON)][5];
-  float con_scales2[D1(NCON)][5];
-  float prow_smu[D1(NPROW)];       // sign * friction of the row's axis
   float wind[3];
   float fluid_visc[NBODY][2];      // viscous torque, force coefficients
   float fluid_dens_f[NBODY][3];    // quadratic-drag force, per local axis
@@ -222,7 +265,11 @@ struct TablesHead {
   float act_sitepos[D1(NU)][3];    // site position, quaternion in the body
   float act_sitequat[D1(NU)][4];
   float act_gear6[D1(NU)][6];      // force (0..2), torque (3..5) in the site
+#if !LR_CTAB_GLOBAL
+  ContactTables con;               // in constant memory with the rest
+#endif
 };
+
 
 // impedance constant block: d0 dmax width mid power a_c b_c b_coef k_coef
 #define IMP_B 7
@@ -231,6 +278,12 @@ struct TablesHead {
 // Generic tables, then the task's constant block: the residual header
 // defines TaskConst and reads the generic tables through `tb`.
 __constant__ TablesHead tb;
+#if LR_CTAB_GLOBAL
+__device__ ContactTables ctab;
+#define CT ctab
+#else
+#define CT tb.con
+#endif
 
 #define LR_STR2(x) #x
 #define LR_STR(x) LR_STR2(x)
@@ -319,8 +372,8 @@ __device__ __forceinline__ void ell_terms(const float* jar, float dn, int ci,
   // contacts); a contact of lower condim has zero rows and zero scales
   // beyond its own, which add exact zeros, so the loops have fixed bounds.
   constexpr int nf = EROWS - 1;
-  const float mu = tb.con_mu[ci];
-  const float* scales = tb.con_scales[ci];
+  const float mu = CT.con_mu[ci];
+  const float* scales = CT.con_scales[ci];
   const float n_ = jar[0];
   float srow[D1(EROWS - 1)];
   float tt = 0.0f;
@@ -333,7 +386,7 @@ __device__ __forceinline__ void ell_terms(const float* jar, float dn, int ci,
   const float tsafe = fmaxf(t, 1e-12f);
   const bool bottom = (mu * n_ + t) <= 0.0f;
   const bool middle = !bottom && (n_ < mu * t);
-  const float w_coef = dn / tb.con_1pmu2[ci];
+  const float w_coef = dn / CT.con_1pmu2[ci];
   const float z = n_ - mu * t;
   const float wz = middle ? w_coef * z : 0.0f;
   const float d_act = bottom ? dn : 0.0f;
@@ -348,11 +401,146 @@ __device__ __forceinline__ void ell_terms(const float* jar, float dn, int ci,
     const float shat = srow[i] / tsafe;
     o->gz[1 + i] = -mu * shat * scales[i];
     o->cs[1 + i] = shat * scales[i];
-    const float r2 = tb.con_scales2[ci][i];
+    const float r2 = CT.con_scales2[ci][i];
     o->g[1 + i] = d_act * r2 * jar[1 + i] + wz * o->gz[1 + i];
     o->hd[1 + i] = d_act * r2 + o->w_cone * r2;
   }
 }
+
+// Rows of contact point ci (ground or body) from its direction Jacobians
+// over its supporting dofs (jd: normal, tangent 1, tangent 2, then the
+// rotations about the same dirs) and velocities vd: one condim-1 row, an
+// elliptic cone block, or two pyramidal rows per friction axis.
+__device__ __forceinline__ void contact_rows(
+    int ci, float gap, const float (*jd)[D1(NSUP)], const float* vd,
+    int& ip, int& ie, float (*prow_j)[D1(NSUP)], float* prow_aref,
+    float* prow_d, float (*e_j)[EROWS][D1(NSUP)], float (*e_aref)[EROWS],
+    float* e_dn) {
+  const int condim = CT.con_condim[ci];
+  const int ns = CT.con_nsup[ci];
+  if (condim == 1) {
+    for (int il = 0; il < ns; ++il) prow_j[ip][il] = jd[0][il];
+    kbi(gap, vd[0], CT.con_imp[ci], CT.con_invw[ci], &prow_aref[ip],
+        &prow_d[ip]);
+    ++ip;
+  } else if (CONE == 1) {
+    const int nf = condim - 1;
+    kbi(gap, vd[0], CT.con_imp[ci], CT.con_invw[ci], &e_aref[ie][0],
+        &e_dn[ie]);
+    // rows past nf and columns past ns stay zero: every block is
+    // EROWS x NSUP, so the solver's loops over it have fixed bounds
+    for (int il = 0; il < NSUP; ++il)
+      e_j[ie][0][il] = il < ns ? jd[0][il] : 0.0f;
+#pragma unroll
+    for (int a = 0; a < EROWS - 1; ++a) {
+      const bool on = a < nf;
+      for (int il = 0; il < NSUP; ++il)
+        e_j[ie][1 + a][il] = on && il < ns ? jd[1 + a][il] : 0.0f;
+      e_aref[ie][1 + a] = on ? -CT.con_imp[ci][IMP_B] * vd[1 + a] : 0.0f;
+    }
+    ++ie;
+  } else {
+    const int nf = condim - 1;
+    for (int a = 0; a < nf; ++a) {
+      for (int s = 0; s < 2; ++s) {
+        const float smu = CT.prow_smu[ip];
+        for (int il = 0; il < ns; ++il)
+          prow_j[ip][il] = jd[0][il] + smu * jd[1 + a][il];
+        kbi(gap, vd[0] + smu * vd[1 + a], CT.con_imp[ci], CT.con_iw[ci],
+            &prow_aref[ip], &prow_d[ip]);
+        ++ip;
+      }
+    }
+  }
+}
+
+#if BODY
+#define BODY_SEG 0
+#define BODY_BOX 1
+
+// The norm's 1e-18 and the outside test's 1e-9 meet exactly at a point on
+// the box (sqrt(0 + 1e-18) == 1e-9 in float32 and in float64): they are
+// written as casts, not f-suffixed literals, so that a host build of this
+// source in double precision keeps them in step with the plain version.
+#define BODY_NORM_EPS ((float)1e-18)
+#define BODY_OUTSIDE ((float)1e-9)
+
+__device__ __forceinline__ float norm3_eps(const float* v) {
+  return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + BODY_NORM_EPS);
+}
+
+// Contact point, normal (from geom1 to geom2) and distance of body entry e:
+// the closest points of two segments by three clamps (BODY_SEG), or a point
+// of radius ra against a box, outside its closest point, inside its
+// nearest face (BODY_BOX). Counterpart of step_lane.body_contact_point.
+__device__ float body_contact(int e, const float (*xpos)[3],
+                              const float (*xquat)[4], float* pt,
+                              float* nrm) {
+  const int ba = CT.bc_ba[e], bb = CT.bc_bb[e];
+  const float ra = CT.bc_ra[e];
+  float ca[3];
+  quat_rot(xquat[ba], CT.bc_pa[e], ca);
+  for (int a = 0; a < 3; ++a) ca[a] = xpos[ba][a] + ca[a];
+  if (CT.bc_kind[e] == BODY_SEG) {
+    float cb[3], ax1[3], ax2[3], r_[3], pa[3], d[3];
+    quat_rot(xquat[bb], CT.bc_pb[e], cb);
+    for (int a = 0; a < 3; ++a) cb[a] = xpos[bb][a] + cb[a];
+    quat_rot(xquat[ba], CT.bc_ua[e], ax1);
+    quat_rot(xquat[bb], CT.bc_ub[e], ax2);
+    const float h1 = CT.bc_ha[e], h2 = CT.bc_hb[e];
+    for (int a = 0; a < 3; ++a) r_[a] = cb[a] - ca[a];
+    const float a_d = dot3(ax1, ax2);
+    const float s1d = dot3(ax1, r_), s2d = dot3(ax2, r_);
+    const float den = fmaxf(1.0f - a_d * a_d, 1e-9f);
+    float t1 = clampf((s1d - a_d * s2d) / den, -h1, h1);
+    const float t2 = clampf(a_d * t1 - s2d, -h2, h2);
+    t1 = clampf(a_d * t2 + s1d, -h1, h1);
+    for (int a = 0; a < 3; ++a) {
+      pa[a] = ca[a] + ax1[a] * t1;
+      d[a] = (cb[a] + ax2[a] * t2) - pa[a];
+    }
+    const float dn = norm3_eps(d);
+    for (int a = 0; a < 3; ++a) nrm[a] = d[a] / dn;
+    const float dist = dn - ra - CT.bc_rb[e];
+    for (int a = 0; a < 3; ++a) pt[a] = pa[a] + nrm[a] * (ra + 0.5f * dist);
+    return dist;
+  }
+  float bpos[3], bq[4], loc[3], dv[3], cl[3], fd[3], sg[3];
+  quat_rot(xquat[bb], CT.bc_pb[e], bpos);
+  for (int a = 0; a < 3; ++a) bpos[a] = xpos[bb][a] + bpos[a];
+  quat_mul(xquat[bb], CT.bc_qb[e], bq);
+  const float bqc[4] = {bq[0], -bq[1], -bq[2], -bq[3]};
+  for (int a = 0; a < 3; ++a) dv[a] = ca[a] - bpos[a];
+  quat_rot(bqc, dv, loc);
+  const float* sz = CT.bc_sb[e];
+  for (int a = 0; a < 3; ++a) {
+    cl[a] = clampf(loc[a], -sz[a], sz[a]);
+    dv[a] = loc[a] - cl[a];
+    fd[a] = sz[a] - fabsf(loc[a]);
+    sg[a] = loc[a] >= 0.0f ? 1.0f : -1.0f;
+  }
+  const float dn = norm3_eps(dv);
+  const bool outside = dn > BODY_OUTSIDE;
+  const bool m01 = fd[0] < fd[1];
+  const bool m02 = fminf(fd[0], fd[1]) < fd[2];
+  const float n_in[3] = {m01 && m02 ? sg[0] : 0.0f,
+                         !m01 && m02 ? sg[1] : 0.0f, !m02 ? sg[2] : 0.0f};
+  const float depth = m02 ? (m01 ? fd[0] : fd[1]) : fd[2];
+  float nl[3], cpl[3], nw[3], cpw[3];
+  for (int a = 0; a < 3; ++a) {
+    nl[a] = outside ? dv[a] / dn : n_in[a];
+    cpl[a] = outside ? cl[a] : (n_in[a] != 0.0f ? sg[a] * sz[a] : loc[a]);
+  }
+  const float dist = (outside ? dn : -depth) - ra;
+  quat_rot(bq, nl, nw);      // from the box toward the point
+  quat_rot(bq, cpl, cpw);
+  for (int a = 0; a < 3; ++a) {
+    pt[a] = (bpos[a] + cpw[a]) + nw[a] * (0.5f * dist);
+    nrm[a] = CT.bc_flip[e] ? nw[a] : -nw[a];
+  }
+  return dist;
+}
+#endif
 
 // Section timing (LR_PROFILE=1, off in normal builds): candidate 0 adds the
 // clock64() cycles it spends in each section of the step to lane_prof, read
@@ -840,9 +1028,10 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           &lim_d[2 * l + 1]);
     }
     // ground contacts, one table entry per contact point (a sphere centre,
-    // a capsule end or a box corner: a body-local point and a radius):
-    // direction Jacobians over the supporting dofs (normal, tangent 1,
-    // tangent 2, then rotations about the same dirs)
+    // a capsule end or a box corner: a body-local point and a radius), then
+    // the body contact entries: direction Jacobians over the supporting
+    // dofs (normal, tangent 1, tangent 2, then rotations about the same
+    // dirs) feed the rows of contact_rows
     float prow_j[D1(NPROW)][D1(NSUP)], prow_aref[D1(NPROW)], prow_d[D1(NPROW)];
     float e_j[D1(NECON)][EROWS][D1(NSUP)], e_aref[D1(NECON)][EROWS];
     float e_dn[D1(NECON)];
@@ -850,32 +1039,31 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
       int ip = 0, ie = 0;
 #pragma unroll 1
       for (int ci = 0; ci < NCON; ++ci) {
-        const int bid = tb.con_body[ci];
-        const int condim = tb.con_condim[ci];
-        const int ns = tb.con_nsup[ci];
-        const float* nrm = tb.con_dirs[ci][0];
+        const int bid = CT.con_body[ci];
+        const int ns = CT.con_nsup[ci];
+        const float* nrm = CT.con_dirs[ci][0];
         float gpos[3];
-        quat_rot(xquat[bid], tb.con_geompos[ci], gpos);
+        quat_rot(xquat[bid], CT.con_geompos[ci], gpos);
         for (int a = 0; a < 3; ++a) gpos[a] += xpos[bid][a];
-        const float r0 = tb.con_radius[ci];
-        const float h_c = nrm[0] * (gpos[0] - tb.con_planepos[ci][0]) +
-                          nrm[1] * (gpos[1] - tb.con_planepos[ci][1]) +
-                          nrm[2] * (gpos[2] - tb.con_planepos[ci][2]);
+        const float r0 = CT.con_radius[ci];
+        const float h_c = nrm[0] * (gpos[0] - CT.con_planepos[ci][0]) +
+                          nrm[1] * (gpos[1] - CT.con_planepos[ci][1]) +
+                          nrm[2] * (gpos[2] - CT.con_planepos[ci][2]);
         const float dist = h_c - r0;
-        const float gap = dist - tb.con_incm[ci];
+        const float gap = dist - CT.con_incm[ci];
         const float* rf = subtree_com[tb.body_rootid[bid]];
         float rvec[3];
         for (int a = 0; a < 3; ++a)
           rvec[a] = gpos[a] - nrm[a] * (r0 + 0.5f * dist) - rf[a];
         float jd[6][D1(NSUP)], vd[6];
         for (int il = 0; il < ns; ++il) {
-          const float* cd = cdof[tb.con_sup[ci][il]];
+          const float* cd = cdof[CT.con_sup[ci][il]];
           float jp[3];
           cross3(cd, rvec, jp);
           for (int a = 0; a < 3; ++a) jp[a] += cd[3 + a];
           for (int d = 0; d < 3; ++d) {
-            jd[d][il] = dot3(jp, tb.con_dirs[ci][d]);
-            jd[3 + d][il] = dot3(cd, tb.con_dirs[ci][d]);
+            jd[d][il] = dot3(jp, CT.con_dirs[ci][d]);
+            jd[3 + d][il] = dot3(cd, CT.con_dirs[ci][d]);
           }
         }
         {
@@ -883,45 +1071,79 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           cross3(cvel[bid], rvec, pv);
           for (int a = 0; a < 3; ++a) pv[a] += cvel[bid][3 + a];
           for (int d = 0; d < 3; ++d) {
-            vd[d] = dot3(pv, tb.con_dirs[ci][d]);
-            vd[3 + d] = dot3(cvel[bid], tb.con_dirs[ci][d]);
+            vd[d] = dot3(pv, CT.con_dirs[ci][d]);
+            vd[3 + d] = dot3(cvel[bid], CT.con_dirs[ci][d]);
           }
         }
-        if (condim == 1) {
-          for (int il = 0; il < ns; ++il) prow_j[ip][il] = jd[0][il];
-          kbi(gap, vd[0], tb.con_imp[ci], tb.con_invw[ci], &prow_aref[ip],
-              &prow_d[ip]);
-          ++ip;
-        } else if (CONE == 1) {
-          const int nf = condim - 1;
-          kbi(gap, vd[0], tb.con_imp[ci], tb.con_invw[ci], &e_aref[ie][0],
-              &e_dn[ie]);
-          // rows past nf and columns past ns stay zero: every block is
-          // EROWS x NSUP, so the solver's loops over it have fixed bounds
-          for (int il = 0; il < NSUP; ++il)
-            e_j[ie][0][il] = il < ns ? jd[0][il] : 0.0f;
-#pragma unroll
-          for (int a = 0; a < EROWS - 1; ++a) {
-            const bool on = a < nf;
-            for (int il = 0; il < NSUP; ++il)
-              e_j[ie][1 + a][il] = on && il < ns ? jd[1 + a][il] : 0.0f;
-            e_aref[ie][1 + a] = on ? -tb.con_imp[ci][IMP_B] * vd[1 + a] : 0.0f;
-          }
-          ++ie;
-        } else {
-          const int nf = condim - 1;
-          for (int a = 0; a < nf; ++a) {
-            for (int s = 0; s < 2; ++s) {
-              const float smu = tb.prow_smu[ip];
-              for (int il = 0; il < ns; ++il)
-                prow_j[ip][il] = jd[0][il] + smu * jd[1 + a][il];
-              kbi(gap, vd[0] + smu * vd[1 + a], tb.con_imp[ci],
-                  tb.con_iw[ci], &prow_aref[ip], &prow_d[ip]);
-              ++ip;
-            }
-          }
-        }
+        contact_rows(ci, gap, jd, vd, ip, ie, prow_j, prow_aref, prow_d, e_j,
+                     e_aref, e_dn);
       }
+#if BODY
+      // body-body contacts: the frame from the traced normal (e the axis
+      // least aligned with it), both bodies' Jacobians over the union
+      // support, b2's term plus, b1's minus, each about its root's subtree
+      // com
+#pragma unroll 1
+      for (int e = 0; e < NBCON; ++e) {
+        const int ci = NCON + e;
+        const int ns = CT.con_nsup[ci];
+        float pt[3], dirs[3][3];
+        const float dist = body_contact(e, xpos, xquat, pt, dirs[0]);
+        const float cnd = fabsf(dirs[0][0]) < 0.5f ? 1.0f : 0.0f;
+        const float ev[3] = {cnd, 1.0f - cnd, 0.0f};
+        cross3(dirs[0], ev, dirs[1]);
+        const float tn = norm3_eps(dirs[1]);
+        for (int a = 0; a < 3; ++a) dirs[1][a] = dirs[1][a] / tn;
+        cross3(dirs[0], dirs[1], dirs[2]);
+        const int b1 = CT.bc_b1[e], b2 = CT.bc_b2[e];
+        const float* rf1 = subtree_com[tb.body_rootid[b1]];
+        const float* rf2 = subtree_com[tb.body_rootid[b2]];
+        const float r1[3] = {pt[0] - rf1[0], pt[1] - rf1[1], pt[2] - rf1[2]};
+        const float r2[3] = {pt[0] - rf2[0], pt[1] - rf2[1], pt[2] - rf2[2]};
+        float jd[6][D1(NSUP)], vd[6];
+        for (int il = 0; il < ns; ++il) {
+          const int dof = CT.con_sup[ci][il];
+          const float* cd = cdof[dof];
+          const bool on2 = tb.body_dofmask[b2][dof] != 0;
+          const bool on1 = tb.body_dofmask[b1][dof] != 0;
+          float jp1[3], jp2[3];
+          cross3(cd, r2, jp2);
+          cross3(cd, r1, jp1);
+          for (int a = 0; a < 3; ++a) {
+            jp2[a] += cd[3 + a];
+            jp1[a] += cd[3 + a];
+          }
+          for (int dd = 0; dd < 3; ++dd) {
+            float lin = 0.0f, ang = 0.0f;
+            if (on2) {
+              lin = dot3(jp2, dirs[dd]);
+              ang = dot3(cd, dirs[dd]);
+            }
+            if (on1) {
+              lin = on2 ? lin - dot3(jp1, dirs[dd]) : -dot3(jp1, dirs[dd]);
+              ang = on2 ? ang - dot3(cd, dirs[dd]) : -dot3(cd, dirs[dd]);
+            }
+            jd[dd][il] = lin;
+            jd[3 + dd][il] = ang;
+          }
+        }
+        {
+          float v1[3], v2[3], pv[3], wrel[3];
+          cross3(cvel[b1], r1, v1);
+          cross3(cvel[b2], r2, v2);
+          for (int a = 0; a < 3; ++a) {
+            pv[a] = (cvel[b2][3 + a] + v2[a]) - (cvel[b1][3 + a] + v1[a]);
+            wrel[a] = cvel[b2][a] - cvel[b1][a];
+          }
+          for (int dd = 0; dd < 3; ++dd) {
+            vd[dd] = dot3(pv, dirs[dd]);
+            vd[3 + dd] = dot3(wrel, dirs[dd]);
+          }
+        }
+        contact_rows(ci, dist - CT.con_incm[ci], jd, vd, ip, ie, prow_j,
+                     prow_aref, prow_d, e_j, e_aref, e_dn);
+      }
+#endif
     }
     TICK(9);
     // ---- Newton on the acceleration ----
@@ -956,9 +1178,9 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
         Hm[d][d] += act;
       }
       for (int r = 0; r < NPROW; ++r) {
-        const int ci = tb.prow_con[r];
-        const int ns = tb.con_nsup[ci];
-        const int* sup = tb.con_sup[ci];
+        const int ci = CT.prow_con[r];
+        const int ns = CT.con_nsup[ci];
+        const int* sup = CT.con_sup[ci];
         float jar = 0.0f;
         for (int il = 0; il < ns; ++il) jar += prow_j[r][il] * acc[sup[il]];
         jar -= prow_aref[r];
@@ -975,8 +1197,8 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
     TICK(11);
 #pragma unroll 1   // rolled on purpose: four unrolled blocks outgrow the i-cache
       for (int e = 0; e < NECON; ++e) {
-        const int ci = tb.econ_con[e];
-        const int* sup = tb.con_sup[ci];
+        const int ci = CT.econ_con[e];
+        const int* sup = CT.con_sup[ci];
         // all loops over a block have fixed bounds (EROWS rows, NSUP columns,
         // zero-padded; a padded column's dof index is 0 and receives exact
         // zeros) and unroll, so loads issue together instead of one behind
@@ -1061,24 +1283,24 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           dlo += act * lim_jar[r] * lim_jps[r];
         }
         for (int r = 0; r < NPROW; ++r) {
-          const int ci = tb.prow_con[r];
-          const int ns = tb.con_nsup[ci];
+          const int ci = CT.prow_con[r];
+          const int ns = CT.con_nsup[ci];
           float s = 0.0f;
           for (int il = 0; il < ns; ++il)
-            s += prow_j[r][il] * pstep[tb.con_sup[ci][il]];
+            s += prow_j[r][il] * pstep[CT.con_sup[ci][il]];
           prow_jps[r] = s;
           const float act = prow_jar[r] < 0.0f ? prow_d[r] : 0.0f;
           dlo += act * prow_jar[r] * s;
         }
 #pragma unroll 1
         for (int e = 0; e < NECON; ++e) {
-          const int ci = tb.econ_con[e];
+          const int ci = CT.econ_con[e];
           float jps[EROWS];
 #pragma unroll
           for (int r = 0; r < EROWS; ++r) jps[r] = 0.0f;
 #pragma unroll
           for (int il = 0; il < NSUP; ++il) {
-            const float ps = pstep[tb.con_sup[ci][il]];
+            const float ps = pstep[CT.con_sup[ci][il]];
 #pragma unroll
             for (int r = 0; r < EROWS; ++r) jps[r] += e_j[e][r][il] * ps;
           }
@@ -1109,7 +1331,7 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
           }
 #pragma unroll 1
           for (int e = 0; e < NECON; ++e) {
-            const int ci = tb.econ_con[e];
+            const int ci = CT.econ_con[e];
             float jart[EROWS];
 #pragma unroll
             for (int r = 0; r < EROWS; ++r)
@@ -1157,9 +1379,9 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
       rhs[d] -= sg * (act * jar);
     }
     for (int r = 0; r < NPROW; ++r) {
-      const int ci = tb.prow_con[r];
-      const int ns = tb.con_nsup[ci];
-      const int* sup = tb.con_sup[ci];
+      const int ci = CT.prow_con[r];
+      const int ns = CT.con_nsup[ci];
+      const int* sup = CT.con_sup[ci];
       float jar = 0.0f;
       for (int il = 0; il < ns; ++il) jar += prow_j[r][il] * acc[sup[il]];
       jar -= prow_aref[r];
@@ -1169,8 +1391,8 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
     }
 #pragma unroll 1
     for (int e = 0; e < NECON; ++e) {
-      const int ci = tb.econ_con[e];
-      const int* sup = tb.con_sup[ci];
+      const int ci = CT.econ_con[e];
+      const int* sup = CT.con_sup[ci];
       float jar[EROWS];
 #pragma unroll
       for (int r = 0; r < EROWS; ++r) jar[r] = 0.0f;
@@ -1234,20 +1456,30 @@ lane_rollout_kernel(const float* __restrict__ qpos0,
 }
 
 extern "C" int lane_tables_size() {
-  return (int)(sizeof(TablesHead) + sizeof(TaskConst));
+  return (int)(sizeof(TablesHead) + (LR_CTAB_GLOBAL ? sizeof(ContactTables) : 0)
+               + sizeof(TaskConst));
 }
 
-// Stream-ordered upload of the constant tables from a host buffer that
-// holds the generic tables followed by the task's constant block.
+// Stream-ordered upload of the tables from a host buffer that holds the
+// generic tables, the contact tables and the task's constant block (the
+// first two are one symbol unless the contact tables live in global memory).
 extern "C" int lane_set_tables(const void* src, int nbytes, void* stream) {
   if (nbytes != lane_tables_size()) return -1;
+  const char* p = (const char*)src;
   cudaError_t err = cudaMemcpyToSymbolAsync(
-      tb, src, sizeof(TablesHead), 0, cudaMemcpyHostToDevice,
+      tb, p, sizeof(TablesHead), 0, cudaMemcpyHostToDevice,
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  p += sizeof(TablesHead);
+#if LR_CTAB_GLOBAL
+  err = cudaMemcpyToSymbolAsync(ctab, p, sizeof(ContactTables), 0,
+                                cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  p += sizeof(ContactTables);
+#endif
   return (int)cudaMemcpyToSymbolAsync(
-      task_tb, (const char*)src + sizeof(TablesHead), sizeof(TaskConst), 0,
-      cudaMemcpyHostToDevice, (cudaStream_t)stream);
+      task_tb, p, sizeof(TaskConst), 0, cudaMemcpyHostToDevice,
+      (cudaStream_t)stream);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).

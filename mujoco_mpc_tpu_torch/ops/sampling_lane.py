@@ -79,12 +79,17 @@ def make_lane_returns_fn(task, config, solver_iters=None,
   if contact_geoms == "task":
     # planning-contact whitelist (e.g. feet only) declared by the task
     contact_geoms = getattr(task, "plan_contact_geoms", None)
+  # body-body pairs in the planning dynamics (hand manipulation), with the
+  # task's optional pair-type whitelist (e.g. Rubik drops its box-box pairs)
+  body_pairs = bool(getattr(task, "plan_body_pairs", False))
+  body_pair_types = getattr(task, "plan_body_pair_types", None)
   risk0 = abs(float(task.cost_spec.risk)) < 1e-6
   cost_terms = None
   if spec is not None and risk0:
     cost_terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
   kw = dict(contact_types=contact_types, contact_geoms=contact_geoms,
-            solver_iters=solver_iters, solver_ls_iters=solver_ls_iters)
+            solver_iters=solver_iters, solver_ls_iters=solver_ls_iters,
+            body_pairs=body_pairs, body_pair_types=body_pair_types)
   scorer = None
   if spec is None:
     scorer = scoring.make_scorer(task.cost_spec, m.qpos0.device)

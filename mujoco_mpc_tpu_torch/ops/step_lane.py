@@ -33,10 +33,13 @@ Model class: hinge/slide/free joints, joint and site transmissions, joint
 limits, the inertia-box fluid model (viscosity / density / wind),
 world-static plane vs sphere / capsule / box contacts (a contact point per
 sphere centre, capsule end and box corner; pyramidal rows, condim-1 rows,
-or elliptic cone blocks at condim 3/4/6 with impratio), task residuals
-with static and per-step aux rows. Body-body pairs, ball joints, equality
-constraints, friction loss and activation states are not ported yet:
-`supports` returns False for them and `build_rollout_kernel` raises.
+or elliptic cone blocks at condim 3/4/6 with impratio), and, opted in with
+`body_pairs=True`, sphere / capsule / box body-body pairs (a contact point
+per sphere or segment pair, capsule end in a box or box corner in the other
+box, its frame built per candidate from the normal, both bodies'
+Jacobians), task residuals with static and per-step aux rows. Ball joints,
+equality constraints, friction loss and activation states are not ported
+yet: `supports` returns False for them and `build_rollout_kernel` raises.
 
 Two control modes: the zero-order-hold spline of the sampling planners, and
 the feedback law of iLQG's line searches (`feedback=True`),
@@ -106,21 +109,59 @@ def _selected_ground_pairs(m: Model, contact_types, contact_geoms):
   return out
 
 
-def unsupported(m: Model, ground_only: bool = False) -> Optional[str]:
-  """What puts `m` outside the kernel's model class, or None. With
-  ground_only=True, candidate pairs that are not plane-vs-{sphere,capsule,
-  box} (self-collisions, other geom types) are DROPPED from the planning
-  dynamics — a deliberate planning-model approximation, the JAX package's
-  own. Body-body pairs are not ported (the JAX kernel's opt-in
-  `body_pairs`)."""
+# body-body pair types the kernel handles (geom types of geom1, geom2)
+_BODY_TYPES = frozenset({
+    (GEOM_SPHERE, GEOM_SPHERE), (GEOM_SPHERE, GEOM_CAPSULE),
+    (GEOM_CAPSULE, GEOM_CAPSULE), (GEOM_SPHERE, GEOM_BOX),
+    (GEOM_CAPSULE, GEOM_BOX), (GEOM_BOX, GEOM_BOX)})
+
+
+def _selected_body_pairs(m: Model, body_pair_types, contact_geoms):
+  """(group, pair index) of every body-body pair the planning model keeps,
+  in the JAX kernel's order: the pair types of `body_pair_types` (default:
+  all six), both geoms in `contact_geoms` (if given), ground pairs
+  excluded."""
+  cp = m.collision_pairs
+  if cp is None:
+    return []
+  allowed = _BODY_TYPES if body_pair_types is None \
+      else frozenset(tuple(int(v) for v in t) for t in body_pair_types)
+  ground = {(int(a), int(b)) for g in _ground_groups(m)
+            for a, b in zip(g.geom1, g.geom2)}
+  out = []
+  for g in cp.groups:
+    types = tuple(int(t) for t in g.types)
+    if types not in _BODY_TYPES or types not in allowed:
+      continue
+    for pi in range(g.count):
+      g1, g2 = int(g.geom1[pi]), int(g.geom2[pi])
+      if (g1, g2) in ground:
+        continue
+      if contact_geoms is not None and not (
+          g1 in contact_geoms and g2 in contact_geoms):
+        continue
+      out.append((g, pi))
+  return out
+
+
+def unsupported(m: Model, ground_only: bool = False,
+                body_pairs: bool = False) -> Optional[str]:
+  """What puts `m` outside the kernel's model class, or None; answers what
+  the JAX package's supports(m, ground_only, body_pairs) answers. With
+  ground_only=True, candidate pairs outside the kernel's contact class are
+  DROPPED from the planning dynamics (a deliberate planning-model
+  approximation, the JAX package's own): every body-body pair with
+  body_pairs=False, body-body pairs of other geom types with
+  body_pairs=True."""
   jt = set(int(t) for t in m.jnt_type)
   if not jt <= {HINGE, SLIDE, FREE}:
     return "ball joints"
   if m.collision_pairs is not None and m.collision_pairs.ncon > 0:
     if not ground_only:
       return "body-body contact pairs (pass ground_only=True to drop them)"
-    if not _ground_groups(m):
-      return "body-body contact pairs (the model has no ground pairs)"
+    if not _ground_groups(m) and not body_pairs:
+      return ("body-body contact pairs (the model has no ground pairs; pass "
+              "body_pairs=True to keep them)")
   if m.neq:
     return "equality constraints"
   if m.na:
@@ -133,11 +174,10 @@ def unsupported(m: Model, ground_only: bool = False) -> Optional[str]:
   return None
 
 
-def supports(m: Model, ground_only: bool = False) -> bool:
-  """Model class the kernel handles (`unsupported` says what is missing);
-  answers what the JAX package's supports(m, ground_only,
-  body_pairs=False) answers."""
-  return unsupported(m, ground_only) is None
+def supports(m: Model, ground_only: bool = False,
+             body_pairs: bool = False) -> bool:
+  """Model class the kernel handles (`unsupported` says what is missing)."""
+  return unsupported(m, ground_only, body_pairs) is None
 
 
 def _static(m: Model) -> dict:
@@ -255,25 +295,53 @@ def _geom_points(m: Model, c: dict, gid: int) -> list:
   raise NotImplementedError(f"ground contact of geom type {gtype}")
 
 
-def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
-  """Static description of every ground contact POINT the planning model
-  keeps (a sphere centre, a capsule end or a box corner): body, body-local
-  point and radius, the static plane and contact frame, the pair's mixed
-  solver parameters (a capsule's two ends share its pair's), supporting
-  dofs."""
-  cp = m.collision_pairs
-  if cp is None or cp.ncon == 0:
-    return []
+def _pair_offsets(cp) -> dict:
+  """(geom1, geom2) -> offset of the pair's row in the per-contact solver
+  parameters (con_friction, con_solref, ...)."""
   meta = {}
   off = 0
   for g in cp.groups:
     for pi in range(g.count):
       meta[(int(g.geom1[pi]), int(g.geom2[pi]))] = off
       off += g.ncon_per_pair
+  return meta
+
+
+def _pair_solver(m: Model, c: dict, ci: int, b1: int, b2: int) -> dict:
+  """The mixed solver parameters of the pair at offset `ci` between bodies
+  b1 and b2 (the world is body 0), its supporting dofs (either body's, in
+  dof order), and the constants its rows derive from them."""
+  cp = m.collision_pairs
+  fri = np.asarray(cp.con_friction[ci], np.float64)
+  invw = float(c["body_invweight0"][b1][0] + c["body_invweight0"][b2][0])
+  mu0 = max(float(fri[0]), 1e-12)
+  impr = max(c["impratio"], 1e-12)
+  mask = m.body_dof_mask
+  return dict(
+      fri=fri, imp=_impedance_consts(cp.con_solref[ci], cp.con_solimp[ci]),
+      incm=float(cp.con_includemargin[ci]), invw=invw,
+      condim=int(cp.con_condim[ci]),
+      support=[i for i in range(m.nv) if mask[b1][i] > 0 or mask[b2][i] > 0],
+      # elliptic: mu_eff = mu0 / sqrt(impratio), scales mu_i / mu_eff
+      mu=mu0 / np.sqrt(impr),
+      scales=fri / (mu0 / np.sqrt(impr)),
+      # pyramidal: friction[0]-based diagonal stiffened by impratio
+      iw=invw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) / impr)
+
+
+def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
+  """Static description of every ground contact POINT the planning model
+  keeps (a sphere centre, a capsule end or a box corner): body and geom,
+  body-local point and radius, the static plane and contact frame, the
+  pair's mixed solver parameters (a capsule's two ends share its pair's),
+  supporting dofs."""
+  cp = m.collision_pairs
+  if cp is None or cp.ncon == 0:
+    return []
+  meta = _pair_offsets(cp)
   out = []
   for g, pi in _selected_ground_pairs(m, contact_types, contact_geoms):
     g1, g2 = int(g.geom1[pi]), int(g.geom2[pi])
-    ci = meta[(g1, g2)]
     bid = int(m.geom_bodyid[g2])
     n_pl = _quat_rotate(c["geom_quat"][g1], [0, 0, 1.0])
     p_pl = np.asarray(c["geom_pos"][g1], dtype=np.float64)
@@ -283,23 +351,92 @@ def _contact_plan(m: Model, c: dict, contact_types, contact_geoms) -> list:
     t1 = np.cross(n_pl, refv)
     t1 /= np.linalg.norm(t1)
     t2 = np.cross(n_pl, t1)
-    fri = np.asarray(cp.con_friction[ci], np.float64)
-    invw = float(c["body_invweight0"][0][0] + c["body_invweight0"][bid][0])
-    condim = int(cp.con_condim[ci])
-    mu0 = max(float(fri[0]), 1e-12)
-    impr = max(c["impratio"], 1e-12)
-    pair = dict(
-        bid=bid, n_pl=n_pl, p_pl=p_pl, dirs=[n_pl, t1, t2], fri=fri,
-        imp=_impedance_consts(cp.con_solref[ci], cp.con_solimp[ci]),
-        incm=float(cp.con_includemargin[ci]), invw=invw, condim=condim,
-        support=[i for i in range(m.nv) if m.body_dof_mask[bid][i] > 0],
-        # elliptic: mu_eff = mu0 / sqrt(impratio), scales mu_i / mu_eff
-        mu=mu0 / np.sqrt(impr),
-        scales=fri / (mu0 / np.sqrt(impr)),
-        # pyramidal: friction[0]-based diagonal stiffened by impratio
-        iw=invw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) / impr)
+    pair = dict(_pair_solver(m, c, meta[(g1, g2)], 0, bid), bid=bid,
+                geom=g2, n_pl=n_pl, p_pl=p_pl, dirs=[n_pl, t1, t2])
     for point, radius in _geom_points(m, c, g2):
       out.append(dict(pair, geom_pos=point, radius=radius))
+  return out
+
+
+# kinds of body contact point entries
+BODY_SEG, BODY_BOX = 0, 1
+
+
+def _body_plan(m: Model, c: dict, body_pair_types, contact_geoms) -> list:
+  """Static description of every body-body contact POINT the planning model
+  keeps, in the JAX kernel's order (pair, capsule end +/-, box-box source
+  box, corner): sphere-sphere, sphere-capsule and capsule-capsule pairs are
+  one segment entry each (BODY_SEG: two body-local segments, a sphere's of
+  half-length 0, their closest points by the JAX kernel's three clamps);
+  sphere-box, capsule-box (one entry per capsule end) and box-box (all 8
+  corners of either box in the other) are point-in-box entries (BODY_BOX: a
+  body-local point and radius against a body-local box, `flip` when the
+  point is geom2's). Each carries its pair's bodies b1 -> b2 (the normal
+  points from geom1 to geom2), solver parameters and the union support of
+  both bodies' dofs. Body-local points and axes are composed on the host in
+  float64."""
+  cp = m.collision_pairs
+  pairs = _selected_body_pairs(m, body_pair_types, contact_geoms)
+  if not pairs:
+    return []
+  meta = _pair_offsets(cp)
+  ez = [0.0, 0.0, 1.0]
+
+  def local(gid, v):
+    return np.asarray(c["geom_pos"][gid], np.float64) + \
+        _quat_rotate(c["geom_quat"][gid], v)
+
+  def size(gid):
+    return np.asarray(c["geom_size"][gid], np.float64)
+
+  def seg(gid):
+    """(body, centre, axis, half-length, radius) of a sphere or capsule."""
+    half = size(gid)[1] if int(m.geom_type[gid]) == GEOM_CAPSULE else 0.0
+    return (int(m.geom_bodyid[gid]), local(gid, [0.0, 0.0, 0.0]),
+            _quat_rotate(c["geom_quat"][gid], ez), float(half),
+            float(size(gid)[0]))
+
+  def box(gid):
+    """(body, centre, geom quaternion in the body, half-sizes)."""
+    return (int(m.geom_bodyid[gid]), local(gid, [0.0, 0.0, 0.0]),
+            np.asarray(c["geom_quat"][gid], np.float64), size(gid)[:3])
+
+  out = []
+  # the fields of the other kind stay zero (one table layout for both)
+  unused = dict(ua=np.zeros(3), ub=np.zeros(3), ha=0.0, hb=0.0, rb=0.0,
+                qb=np.zeros(4), sb=np.zeros(3), flip=False)
+  for g, pi in pairs:
+    g1, g2 = int(g.geom1[pi]), int(g.geom2[pi])
+    b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
+    pair = dict(_pair_solver(m, c, meta[(g1, g2)], b1, b2), **unused, b1=b1,
+                b2=b2, types=tuple(int(t) for t in g.types), geoms=(g1, g2))
+    t1, t2 = pair["types"]
+    if t2 != GEOM_BOX:
+      ba, pa, ua, ha, ra = seg(g1)
+      bb, pb, ub, hb, rb = seg(g2)
+      out.append(dict(pair, kind=BODY_SEG, ba=ba, pa=pa, ua=ua, ha=ha,
+                      ra=ra, bb=bb, pb=pb, ub=ub, hb=hb, rb=rb))
+      continue
+    if t1 == GEOM_BOX:
+      # vertex-in-box both ways: every corner of one box against the other
+      points = []
+      for src, dst, flip in ((g1, g2, False), (g2, g1, True)):
+        s = size(src)
+        points += [(src, dst, flip, local(src, [sx * s[0], sy * s[1],
+                                                sz * s[2]]), 0.0)
+                   for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+    elif t1 == GEOM_CAPSULE:
+      s = size(g1)
+      points = [(g1, g2, False, local(g1, [0.0, 0.0, sgn * s[1]]),
+                 float(s[0])) for sgn in (1.0, -1.0)]
+    else:
+      points = [(g1, g2, False, local(g1, [0.0, 0.0, 0.0]),
+                 float(size(g1)[0]))]
+    for src, dst, flip, point, radius in points:
+      bb, pb, qb, sb = box(dst)
+      out.append(dict(pair, kind=BODY_BOX, ba=int(m.geom_bodyid[src]),
+                      pa=point, ra=radius, bb=bb, pb=pb, qb=qb, sb=sb,
+                      flip=flip))
   return out
 
 
@@ -315,6 +452,43 @@ def contact_clearance(m: Model, qpos) -> float:
                                              con["geom_pos"])
              - con["p_pl"]) @ con["n_pl"]) - con["radius"]
       for con in _contact_plan(m, _static(m), None, None))
+
+
+def contact_gaps(m: Model, qpos, contact_geoms=None, body_pairs=False,
+                 body_pair_types=None) -> list:
+  """(geom types of the pair, condim, gap (K,)) of every contact point the
+  kernel keeps at configurations qpos (nq, K), in the tables' order (the
+  ground points, then the body points). The gap is the distance less the
+  pair's included margin: a point's rows enter the solve where it is
+  negative."""
+  c = _static(m)
+  qpos = torch.as_tensor(qpos, dtype=m.qpos0.dtype, device=m.qpos0.device)
+  d0 = make_data(m)
+
+  def frames(q):
+    d = kinematics.kinematics(m, d0.replace(qpos=q))
+    return d.xpos, d.xquat
+
+  xp, xq = torch.func.vmap(frames)(qpos.T)
+  xpos = [tuple(xp[:, b, i] for i in range(3)) for b in range(m.nbody)]
+  xquat = [tuple(xq[:, b, i] for i in range(4)) for b in range(m.nbody)]
+
+  def cv(v):
+    return lm.const_vec3(v, qpos[0])
+
+  out = []
+  for con in _contact_plan(m, c, None, contact_geoms):
+    bid = con["bid"]
+    gpos = lm.vadd(xpos[bid], lm.qrot(xquat[bid], cv(con["geom_pos"])))
+    dist = lm.vdot(lm.vsub(gpos, cv(con["p_pl"])), cv(con["n_pl"])) \
+        - con["radius"]
+    out.append(((GEOM_PLANE, int(m.geom_type[con["geom"]])), con["condim"],
+                dist - con["incm"]))
+  for bc in (_body_plan(m, c, body_pair_types, contact_geoms)
+             if body_pairs else []):
+    _, dist, _ = body_contact_point(bc, xpos, xquat, cv)
+    out.append((bc["types"], bc["condim"], dist - bc["incm"]))
+  return out
 
 
 def _limit_plan(m: Model, c: dict) -> list:
@@ -357,9 +531,78 @@ def _fluid_plan(m: Model, c: dict) -> list:
   return out
 
 
+def _vnorm(v):
+  return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + 1e-18)
+
+
+def _vnormalize(v):
+  n_ = _vnorm(v)
+  return (v[0] / n_, v[1] / n_, v[2] / n_), n_
+
+
+def body_contact_point(bc: dict, xpos, xquat, cv):
+  """(contact point, distance, normal from geom1 to geom2) of one body
+  contact entry of `_body_plan`, per candidate (component lists)."""
+  ba, bb = bc["ba"], bc["bb"]
+  ca = lm.vadd(xpos[ba], lm.qrot(xquat[ba], cv(bc["pa"])))
+  if bc["kind"] == BODY_SEG:
+    # closest points of the two segments: the JAX kernel's three clamps
+    cb = lm.vadd(xpos[bb], lm.qrot(xquat[bb], cv(bc["pb"])))
+    ax1 = lm.qrot(xquat[ba], cv(bc["ua"]))
+    ax2 = lm.qrot(xquat[bb], cv(bc["ub"]))
+    h1, h2 = bc["ha"], bc["hb"]
+    r_ = lm.vsub(cb, ca)
+    a_d = lm.vdot(ax1, ax2)
+    s1d = lm.vdot(ax1, r_)
+    s2d = lm.vdot(ax2, r_)
+    den = torch.clamp(1.0 - a_d * a_d, min=1e-9)
+    t1s = torch.clamp((s1d - a_d * s2d) / den, -h1, h1)
+    t2s = torch.clamp(a_d * t1s - s2d, -h2, h2)
+    t1s = torch.clamp(a_d * t2s + s1d, -h1, h1)
+    pa = lm.vadd(ca, lm.vscale(ax1, t1s))
+    pb = lm.vadd(cb, lm.vscale(ax2, t2s))
+    n_, dn = _vnormalize(lm.vsub(pb, pa))
+    dist = dn - bc["ra"] - bc["rb"]
+    return lm.vadd(pa, lm.vscale(n_, bc["ra"] + 0.5 * dist)), dist, n_
+  # a point of radius ra (sphere centre, capsule end, box corner) against a
+  # box: outside, the closest point of the box; inside, the nearest face
+  b_pos = lm.vadd(xpos[bb], lm.qrot(xquat[bb], cv(bc["pb"])))
+  b_quat = lm.qmul(xquat[bb], lm.const_quat(bc["qb"], xpos[bb][0]))
+  loc = lm.qrot((b_quat[0], -b_quat[1], -b_quat[2], -b_quat[3]),
+                lm.vsub(ca, b_pos))
+  sz = [float(v) for v in bc["sb"]]
+  cl = tuple(torch.clamp(loc[k], -sz[k], sz[k]) for k in range(3))
+  dvec = lm.vsub(loc, cl)
+  dn = _vnorm(dvec)
+  outside = dn > 1e-9
+  n_out = (dvec[0] / dn, dvec[1] / dn, dvec[2] / dn)
+  fd = [sz[k] - torch.abs(loc[k]) for k in range(3)]
+  m01 = fd[0] < fd[1]
+  m02 = torch.minimum(fd[0], fd[1]) < fd[2]
+  one = torch.ones_like(dn)
+  sgn = [torch.where(loc[k] >= 0, one, -one) for k in range(3)]
+  zero = torch.zeros_like(dn)
+  n_in = (torch.where(m01 & m02, sgn[0], zero),
+          torch.where((~m01) & m02, sgn[1], zero),
+          torch.where(~m02, sgn[2], zero))
+  depth = torch.where(m02, torch.where(m01, fd[0], fd[1]), fd[2])
+  n_loc = tuple(torch.where(outside, n_out[k], n_in[k]) for k in range(3))
+  dist_l = torch.where(outside, dn, -depth)
+  cp_loc = tuple(torch.where(outside, cl[k],
+                             torch.where(n_in[k] != 0, sgn[k] * sz[k],
+                                         loc[k])) for k in range(3))
+  n_w = lm.qrot(b_quat, n_loc)     # from the box toward the point
+  cp_w = lm.vadd(b_pos, lm.qrot(b_quat, cp_loc))
+  dist = dist_l - bc["ra"]
+  pt = lm.vadd(cp_w, lm.vscale(n_w, 0.5 * dist))
+  if bc["flip"]:
+    return pt, dist, n_w
+  return pt, dist, (-n_w[0], -n_w[1], -n_w[2])
+
+
 def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
-                    fluid: list, n_newton: int, n_ls: int, residual_fn,
-                    residual_dim):
+                    bodies: list, fluid: list, n_newton: int, n_ls: int,
+                    residual_fn, residual_dim):
   """The plain PyTorch step on component lists of (K,) tensors."""
   nq, nv, nu, nb = m.nq, m.nv, m.nu, m.nbody
   h = c["timestep"]
@@ -723,8 +966,45 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
         jrow[dadr] = like * 0.0 + sign
         rows.append((jrow, aref, dcoef))
 
+    def add_rows(con, gap, jdir, vdirs, rot_axes):
+      """Rows of one contact point from its direction Jacobians `jdir`
+      (normal, tangent 1, tangent 2) and point velocities `vdirs`;
+      rot_axes(n) gives the (Jacobian, velocity) of the rotations about the
+      first n contact dirs (condim > 3). Frictionless: one one-sided normal row; elliptic:
+      a cone block; pyramidal: 2 one-sided rows per friction axis."""
+      support, fri = con["support"], con["fri"]
+      condim_c = con["condim"]
+      if condim_c == 1:
+        aref, dcoef = kbi(gap, vdirs[0], con["imp"], max(con["invw"], 1e-12))
+        rows.append((jdir[0], aref, dcoef))
+        return
+      axes = [(jdir[1], vdirs[1], float(fri[0])),
+              (jdir[2], vdirs[2], float(fri[1]))]
+      if condim_c > 3:
+        rot = rot_axes(1 if condim_c == 4 else 3)
+        axes += [(row, jv_r, float(fri[ax_i]))
+                 for ax_i, (row, jv_r) in zip((2, 3, 4), rot)]
+      if c["cone"] == 1:
+        # elliptic block: normal row from kbi; friction rows carry
+        # aref = -B*jv only, D_i = D_N * (mu_i / mu_eff)^2
+        aref_n, dn = kbi(gap, vdirs[0], con["imp"], max(con["invw"], 1e-12))
+        b_coef = float(con["imp"][7])
+        eblocks.append((
+            tuple(support), [jdir[0]] + [a_[0] for a_ in axes],
+            [aref_n] + [-b_coef * a_[1] for a_ in axes], dn,
+            float(con["mu"]), np.asarray(con["scales"][:len(axes)])))
+        return
+      for jrow_a, jv_a, mu_f in axes:
+        for sign in (1.0, -1.0):
+          jrow = [None] * nv
+          for i in support:
+            jrow[i] = jdir[0][i] + sign * mu_f * jrow_a[i]
+          jv = vdirs[0] + sign * mu_f * jv_a
+          aref, dcoef = kbi(gap, jv, con["imp"], max(con["iw"], 1e-12))
+          rows.append((jrow, aref, dcoef))
+
     for con in contacts:
-      bid, dirs, fri = con["bid"], con["dirs"], con["fri"]
+      bid, dirs = con["bid"], con["dirs"]
       n_pl, p_pl, r0 = con["n_pl"], con["p_pl"], con["radius"]
       support = con["support"]
       gpos = lm.vadd(xpos[bid], lm.qrot(xquat[bid], cv(con["geom_pos"])))
@@ -733,7 +1013,6 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
              float(n_pl[2]) * (gpos[2] - float(p_pl[2])))
       dist = h_c - r0
       pt = lm.vsub(gpos, lm.vscale(cv(n_pl), r0 + 0.5 * dist))
-      gap = dist - con["incm"]
       rvec = lm.vsub(pt, ref[bid])
       jdir = []
       for dvec in dirs:
@@ -748,49 +1027,70 @@ def _make_step_body(m: Model, c: dict, limits: list, contacts: list,
       pv = lm.vadd(vv, lm.vcross(wv, rvec))
       vdirs = [pv[0] * float(d_[0]) + pv[1] * float(d_[1]) +
                pv[2] * float(d_[2]) for d_ in dirs]
-      condim_c = con["condim"]
-      if condim_c == 1:
-        # frictionless: a single one-sided normal row
-        aref, dcoef = kbi(gap, vdirs[0], con["imp"],
-                          max(con["invw"], 1e-12))
-        rows.append((jdir[0], aref, dcoef))
-        continue
-      axes = [(jdir[1], vdirs[1], float(fri[0])),
-              (jdir[2], vdirs[2], float(fri[1]))]
-      if condim_c > 3:
-        # torsion/rolling axes: angular Jacobian rows about the static
-        # frame dirs (the plane is world-static: only bid's dofs move)
-        rot_dirs = dirs if condim_c == 6 else dirs[:1]
-        for ax_i, dvec in zip((2, 3, 4), rot_dirs):
+
+      def ground_rot(n, support=support, dirs=dirs, wv=wv):
+        # angular Jacobian rows about the first n static frame dirs (the
+        # plane is world-static: only the body's dofs move)
+        out = []
+        for dvec in dirs[:n]:
           row = [None] * nv
           for i in support:
             wd = cdof[i][0]
             row[i] = wd[0] * float(dvec[0]) + \
                 wd[1] * float(dvec[1]) + wd[2] * float(dvec[2])
-          jv_r = wv[0] * float(dvec[0]) + \
-              wv[1] * float(dvec[1]) + wv[2] * float(dvec[2])
-          axes.append((row, jv_r, float(fri[ax_i])))
-      if c["cone"] == 1:
-        # elliptic block: normal row from kbi; friction rows carry
-        # aref = -B*jv only, D_i = D_N * (mu_i / mu_eff)^2
-        aref_n, dn = kbi(gap, vdirs[0], con["imp"],
-                         max(con["invw"], 1e-12))
-        b_coef = float(con["imp"][7])
-        eblocks.append((
-            tuple(support), [jdir[0]] + [a_[0] for a_ in axes],
-            [aref_n] + [-b_coef * a_[1] for a_ in axes], dn,
-            float(con["mu"]), np.asarray(con["scales"][:len(axes)])))
-        continue
-      # pyramidal: 2 one-sided rows per friction axis (incl. torsion /
-      # rolling for condim > 3)
-      for jrow_a, jv_a, mu_f in axes:
-        for sign in (1.0, -1.0):
-          jrow = [None] * nv
+          out.append((row, wv[0] * float(dvec[0]) +
+                      wv[1] * float(dvec[1]) + wv[2] * float(dvec[2])))
+        return out
+
+      add_rows(con, dist - con["incm"], jdir, vdirs, ground_rot)
+
+    # body-body contacts: narrowphase per candidate, a frame built from the
+    # traced normal, both bodies' Jacobians (b2 plus, b1 minus), each body
+    # about its own root's subtree com
+    for bc in bodies:
+      pt, dist, nrm = body_contact_point(bc, xpos, xquat, cv)
+      b1, b2, support = bc["b1"], bc["b2"], bc["support"]
+      cond = (torch.abs(nrm[0]) < 0.5).to(like.dtype)
+      t1, _ = _vnormalize(lm.vcross(nrm, (cond, 1.0 - cond, like * 0.0)))
+      dirs = [nrm, t1, lm.vcross(nrm, t1)]
+      jdir = []
+      for dvec in dirs:
+        row = [None] * nv
+        for i in support:
+          acc = None
+          for bb, sgn in ((b2, 1.0), (b1, -1.0)):
+            if m.body_dof_mask[bb][i] > 0:
+              w2, v2 = cdof[i]
+              jp = lm.vadd(v2, lm.vcross(w2, lm.vsub(pt, ref[bb])))
+              term = sgn * lm.vdot(jp, dvec)
+              acc = term if acc is None else acc + term
+          row[i] = acc
+        jdir.append(row)
+
+      def pvel(bb):
+        w, v = cvel[bb]
+        return lm.vadd(v, lm.vcross(w, lm.vsub(pt, ref[bb])))
+
+      pv = lm.vsub(pvel(b2), pvel(b1))
+      vdirs = [lm.vdot(pv, d_) for d_ in dirs]
+
+      def body_rot(n, support=support, dirs=dirs, b1=b1, b2=b2):
+        # the relative angular Jacobian about the first n traced frame dirs
+        wrel = lm.vsub(cvel[b2][0], cvel[b1][0])
+        out = []
+        for dvec in dirs[:n]:
+          row = [None] * nv
           for i in support:
-            jrow[i] = jdir[0][i] + sign * mu_f * jrow_a[i]
-          jv = vdirs[0] + sign * mu_f * jv_a
-          aref, dcoef = kbi(gap, jv, con["imp"], max(con["iw"], 1e-12))
-          rows.append((jrow, aref, dcoef))
+            acc = None
+            for bb, sgn in ((b2, 1.0), (b1, -1.0)):
+              if m.body_dof_mask[bb][i] > 0:
+                term = sgn * lm.vdot(cdof[i][0], dvec)
+                acc = term if acc is None else acc + term
+            row[i] = acc
+          out.append((row, lm.vdot(wrel, dvec)))
+        return out
+
+      add_rows(bc, dist - bc["incm"], jdir, vdirs, body_rot)
 
     # ---- support-grouped Newton constraint solve ----
     M = torch.stack([torch.stack(r) for r in mrows])      # (nv, nv, K)
@@ -1048,18 +1348,28 @@ def _pad(a, shape, dtype) -> np.ndarray:
   return out
 
 
+# the kernel keeps its tables in __constant__ memory (64 KB a module) until
+# they outgrow this; then the per-point and per-row tables move to global
+# memory (`LR_CTAB_GLOBAL`)
+CONSTANT_BYTES = 63 * 1024
+
+
 def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
-                 fluid: list, cost_terms, residual,
+                 bodies: list, fluid: list, cost_terms, residual,
                  table_float=np.float32) -> tuple:
-  """Bytes of the kernel's constant tables (field order of `TablesHead` in
-  ops/csrc/lane_rollout.cu, then the task's constant block) and the
-  row-count dimensions they imply."""
+  """Bytes of the kernel's tables (field order of `TablesHead`, then of
+  `ContactTables` — its last member, or a global-memory symbol past
+  CONSTANT_BYTES — in ops/csrc/lane_rollout.cu, then the task's constant
+  block) and the dimensions they imply. Contact index ci runs over the
+  ground contact points, then the body contact entries."""
   nb, nj, nv, nu, nq = m.nbody, m.njnt, m.nv, m.nu, m.nq
-  nlimj, ncon = len(limits), len(contacts)
-  nsup = max([len(con["support"]) for con in contacts] + [1])
+  allc = contacts + bodies
+  nlimj, ncon, nbcon, nct = len(limits), len(contacts), len(bodies), \
+      len(allc)
+  nsup = max([len(con["support"]) for con in allc] + [1])
   elliptic = c["cone"] == 1
   prow_con, prow_smu, econ_con = [], [], []
-  for ci, con in enumerate(contacts):
+  for ci, con in enumerate(allc):
     if con["condim"] == 1:
       prow_con.append(ci)
       prow_smu.append(0.0)
@@ -1079,8 +1389,8 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   site = [int(m.actuator_trntype[u]) == TRN_SITE for u in range(nu)]
   jtid = [0 if site[u] else tid[u] for u in range(nu)]
   stid = [tid[u] if site[u] else 0 for u in range(nu)]
-  sup = np.zeros((_d1(ncon), nsup), i32)
-  for ci, con in enumerate(contacts):
+  sup = np.zeros((_d1(nct), nsup), i32)
+  for ci, con in enumerate(allc):
     sup[ci, :len(con["support"])] = con["support"]
 
   def actcols(key, ncol):
@@ -1092,8 +1402,8 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
     out[:con["condim"] - 1] = con["scales"][:con["condim"] - 1]
     return out
 
-  def col(key, dtype, shape):
-    return _pad([con[key] for con in contacts], shape, dtype)
+  def col(rows, key, dtype, shape):
+    return (_pad([con[key] for con in rows], shape, dtype), dtype, shape)
 
   fluid_on = np.zeros(nb, i32)
   for fl in fluid:
@@ -1105,7 +1415,7 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       out[fl["body"]] = get(fl)
     return out
 
-  fields = [
+  head = [
       (m.body_parentid, i32, (nb,)), (m.body_rootid, i32, (nb,)),
       (m.body_jntadr, i32, (nb,)), (m.body_jntnum, i32, (nb,)),
       (m.body_dofadr, i32, (nb,)), (m.body_dofnum, i32, (nb,)),
@@ -1121,12 +1431,6 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       (np.asarray(c["forcelimited"]) != 0, i32, (_d1(nu),)),
       ([l["qadr"] for l in limits], i32, (_d1(nlimj),)),
       ([l["dadr"] for l in limits], i32, (_d1(nlimj),)),
-      ([con["bid"] for con in contacts], i32, (_d1(ncon),)),
-      ([con["condim"] for con in contacts], i32, (_d1(ncon),)),
-      ([len(con["support"]) for con in contacts], i32, (_d1(ncon),)),
-      (sup, i32, sup.shape),
-      (prow_con, i32, (_d1(nprow),)),
-      (econ_con, i32, (_d1(necon),)),
       ([t for t, _ in (cost_terms or ())], i32, (_d1(nterm),)),
       ([d for _, d in (cost_terms or ())], i32, (_d1(nterm),)),
       (np.asarray(m.body_dof_mask) > 0, i32, (nb, _d1(nv))),
@@ -1153,22 +1457,6 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       ([l["margin"] for l in limits], f32, (_d1(nlimj),)),
       ([l["invw"] for l in limits], f32, (_d1(nlimj),)),
       ([l["imp"] for l in limits], f32, (_d1(nlimj), 9)),
-  ]
-  fields += [
-      (col("geom_pos", f32, (_d1(ncon), 3)), f32, (_d1(ncon), 3)),
-      (col("radius", f32, (_d1(ncon),)), f32, (_d1(ncon),)),
-      (col("p_pl", f32, (_d1(ncon), 3)), f32, (_d1(ncon), 3)),
-      (col("dirs", f32, (_d1(ncon), 3, 3)), f32, (_d1(ncon), 3, 3)),
-      (col("imp", f32, (_d1(ncon), 9)), f32, (_d1(ncon), 9)),
-      (col("incm", f32, (_d1(ncon),)), f32, (_d1(ncon),)),
-      ([max(con["invw"], 1e-12) for con in contacts], f32, (_d1(ncon),)),
-      ([max(con["iw"], 1e-12) for con in contacts], f32, (_d1(ncon),)),
-      (col("mu", f32, (_d1(ncon),)), f32, (_d1(ncon),)),
-      ([1.0 + con["mu"] ** 2 for con in contacts], f32, (_d1(ncon),)),
-      # scales past a contact's own friction axes are zero (see EROWS)
-      ([nfscales(con) for con in contacts], f32, (_d1(ncon), 5)),
-      ([nfscales(con) ** 2 for con in contacts], f32, (_d1(ncon), 5)),
-      (prow_smu, f32, (_d1(nprow),)),
       (c["wind"], f32, (3,)),
       (fluid_col(lambda fl: [fl["visc_t"], fl["visc_f"]], 2), f32, (nb, 2)),
       (fluid_col(lambda fl: fl["dens_f"], 3), f32, (nb, 3)),
@@ -1182,16 +1470,52 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
        (_d1(nu), 4)),
       (actcols("gear", 6), f32, (_d1(nu), 6)),
   ]
-  if residual is not None:
-    fields += [(v, f32 if dt == np.float32 else dt, np.asarray(v).shape)
-               for _, dt, v in residual["consts"]]
-  else:
-    fields.append(([0], i32, (1,)))
-  blob = b"".join(_pad(v, shape, dt).tobytes() for v, dt, shape in fields)
+  # per contact point (ground, then body entries) and per row
+  nc1, nct1 = (_d1(ncon),), (_d1(nct),)
+  contact = [
+      ([con["bid"] for con in contacts], i32, nc1),
+      ([con["condim"] for con in allc], i32, nct1),
+      ([len(con["support"]) for con in allc], i32, nct1),
+      (sup, i32, sup.shape),
+      (prow_con, i32, (_d1(nprow),)),
+      (econ_con, i32, (_d1(necon),)),
+      col(contacts, "geom_pos", f32, (_d1(ncon), 3)),
+      col(contacts, "radius", f32, nc1),
+      col(contacts, "p_pl", f32, (_d1(ncon), 3)),
+      col(contacts, "dirs", f32, (_d1(ncon), 3, 3)),
+      col(allc, "imp", f32, (_d1(nct), 9)),
+      col(allc, "incm", f32, nct1),
+      ([max(con["invw"], 1e-12) for con in allc], f32, nct1),
+      ([max(con["iw"], 1e-12) for con in allc], f32, nct1),
+      col(allc, "mu", f32, nct1),
+      ([1.0 + con["mu"] ** 2 for con in allc], f32, nct1),
+      # scales past a contact's own friction axes are zero (see EROWS)
+      ([nfscales(con) for con in allc], f32, (_d1(nct), 5)),
+      ([nfscales(con) ** 2 for con in allc], f32, (_d1(nct), 5)),
+      (prow_smu, f32, (_d1(nprow),)),
+  ]
+  if bodies:
+    nb1 = (nbcon,)
+    contact += [(_pad([bc[key] for bc in bodies], nb1, i32), i32, nb1)
+                for key in ("kind", "b1", "b2", "ba", "bb", "flip")]
+    contact += [col(bodies, key, f32, (nbcon,) + np.shape(bodies[0][key]))
+                for key in ("pa", "ra", "pb", "ua", "ub", "ha", "hb", "rb",
+                            "qb", "sb")]
+  task = [(v, f32 if dt == np.float32 else dt, np.asarray(v).shape)
+          for _, dt, v in residual["consts"]] if residual is not None \
+      else [([0], i32, (1,))]
+
+  def pack(fields):
+    return b"".join(_pad(v, shape, dt).tobytes() for v, dt, shape in fields)
+
+  blob_head, blob_contact, blob_task = pack(head), pack(contact), pack(task)
+  blob = blob_head + blob_contact + blob_task
   # rows every elliptic block carries: the largest condim among them
-  erows = max([contacts[ci]["condim"] for ci in econ_con] + [1])
-  dims = dict(NLIMJ=nlimj, NCON=ncon, NPROW=nprow, NECON=necon, NSUP=nsup,
-              EROWS=erows, FLUID=int(bool(fluid)), SITE=int(any(site)))
+  erows = max([allc[ci]["condim"] for ci in econ_con] + [1])
+  dims = dict(NLIMJ=nlimj, NCON=ncon, NBCON=nbcon, BODY=int(nbcon > 0),
+              NPROW=nprow, NECON=necon, NSUP=nsup, EROWS=erows,
+              FLUID=int(bool(fluid)), SITE=int(any(site)),
+              CTAB_GLOBAL=int(len(blob) > CONSTANT_BYTES))
   return blob, dims
 
 
@@ -1200,7 +1524,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                          solver_iters=None, solver_ls_iters=None,
                          residual: Optional[dict] = None, naux: int = 0,
                          record_states: bool = True,
-                         cost_terms=None, feedback: bool = False, *,
+                         cost_terms=None, feedback: bool = False,
+                         body_pairs: bool = False, body_pair_types=None, *,
                          _block: int = 32,
                          _profile: bool = False,
                          _table_float=np.float32) -> Callable:
@@ -1228,6 +1553,13 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   state. solver_iters / solver_ls_iters default to the model's own
   schedule.
 
+  Planning contacts: the ground pairs of `contact_types` (geom types of the
+  non-plane geom) whose geom is in `contact_geoms` (both default to all);
+  with `body_pairs=True` also the body-body pairs of `body_pair_types`
+  ((type1, type2) pairs; default all six sphere / capsule / box types)
+  whose two geoms are in `contact_geoms`. Other pairs are dropped from the
+  planning dynamics, as in the JAX package.
+
   With `feedback=True` (recorded states only; `num_nodes` is not used) the
   callable is fn(qpos0, qvel0, values (2,K), aux, table (horizon*stride,))
   and the control of step t is
@@ -1252,13 +1584,12 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   callable carries `.step_array` and `.residual_array` (plain version of
   one step on (dim, K) tensors).
   """
-  missing = unsupported(m, ground_only=True)
+  missing = unsupported(m, ground_only=True, body_pairs=body_pairs)
   if missing is not None:
     raise NotImplementedError(
         f"model outside the ported kernel class: {missing} (see "
-        "ops/step_lane.py: body-body pairs, ball joints, equality "
-        "constraints, friction loss and activation states are not ported "
-        "yet)")
+        "ops/step_lane.py: ball joints, equality constraints, friction loss "
+        "and activation states are not ported yet)")
   c = _static(m)
   nq, nv, nu = m.nq, m.nv, m.nu
   n_newton = int(m.opt.iterations) if solver_iters is None \
@@ -1270,6 +1601,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                       num_nodes - 1) for t in range(horizon)]
   limits = _limit_plan(m, c)
   contacts = _contact_plan(m, c, contact_types, contact_geoms)
+  bodies = _body_plan(m, c, body_pair_types, contact_geoms) \
+      if body_pairs else []
   fluid = _fluid_plan(m, c)
   ndx = 2 * nv
   stride = 2 * nu + nu * ndx + nq + nv
@@ -1297,8 +1630,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   mode = MODE_STATES if record_states else (
       MODE_COST_SUMS if cost_terms else MODE_RESIDUALS)
 
-  step_body = _make_step_body(m, c, limits, contacts, fluid, n_newton, n_ls,
-                              residual_fn, nr)
+  step_body = _make_step_body(m, c, limits, contacts, bodies, fluid,
+                              n_newton, n_ls, residual_fn, nr)
 
   def feedback_ctrl(t, qpos, qvel, alpha, scale, table):
     """The feedback law on component lists: table is (horizon, stride)."""
@@ -1380,8 +1713,8 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   state = dict(lib=None, blob=None)
 
   def defines():
-    blob, dims = _pack_tables(m, c, limits, contacts, fluid, cost_terms,
-                              residual, _table_float)
+    blob, dims = _pack_tables(m, c, limits, contacts, bodies, fluid,
+                              cost_terms, residual, _table_float)
     header = residual["header"] if residual is not None \
         else "residual_none.cuh"
     d = dict(NQ=nq, NV=nv, NU=nu, NBODY=m.nbody, NJNT=m.njnt, H=horizon,

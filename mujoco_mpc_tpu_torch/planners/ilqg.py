@@ -246,7 +246,9 @@ def _make_lane_feedback(m: Model, lane_spec, horizon: int):
   per-step launch overhead dominates at robotics sizes.
 
   The nominal trajectory, k and the gains ride the per-step table shared by
-  all candidates; alpha / scale are the per-candidate values rows.
+  all candidates; alpha / scale are the per-candidate values rows. As in the
+  JAX package, the build takes no planning-contact filter: every ground
+  pair of the model is kept and body-body pairs are dropped.
   """
   from mujoco_mpc_tpu_torch.ops import step_lane
 
@@ -258,9 +260,8 @@ def _make_lane_feedback(m: Model, lane_spec, horizon: int):
   lo = m.actuator_ctrlrange[:, 0]
   hi = m.actuator_ctrlrange[:, 1]
   kernel = step_lane.build_rollout_kernel(
-      m, horizon, 1, contact_geoms=lane_spec.get("contact_geoms"),
-      residual=lane_spec,
-      naux=naux0, record_states=True, feedback=True)
+      m, horizon, 1, residual=lane_spec, naux=naux0, record_states=True,
+      feedback=True)
   make_aux = lane_spec["make_aux"]
 
   def rollouts(d0, pol_states, pol_actions, ks, kmats, alphas, scales,
@@ -304,6 +305,7 @@ def _make_lane_feedback(m: Model, lane_spec, horizon: int):
     actions = torch.minimum(torch.maximum(u_all, lo), hi)
     return states, actions, totals
 
+  rollouts.kernel = kernel
   return rollouts
 
 
@@ -587,9 +589,10 @@ class ILQGPlanner:
     if not lane:
       return None
     from mujoco_mpc_tpu_torch.ops import step_lane
-    contact_geoms = getattr(task, "plan_contact_geoms", None)
     lane_modes = getattr(task, "lane_modes", None)
-    missing = step_lane.unsupported(self.m, ground_only=True)
+    missing = step_lane.unsupported(
+        self.m, ground_only=True,
+        body_pairs=bool(getattr(task, "plan_body_pairs", False)))
     refused = None
     if not hasattr(task, "lane_residual_spec"):
       refused = (f"task {type(task).__name__} has no lane_residual_spec "
@@ -608,9 +611,7 @@ class ILQGPlanner:
           f"iLQG line searches cannot take the lane rollout kernel: "
           f"{refused}; pass lane=False to take the vmapped pipeline "
           "rollouts")
-    spec = dict(task.lane_residual_spec())
-    spec["contact_geoms"] = contact_geoms
-    return spec
+    return task.lane_residual_spec()
 
   def optimize(self, key, d0: Data, mark=None):
     self.policy, info = self._optimize(key, d0, self.policy,

@@ -13,9 +13,11 @@ _REGISTRY: Dict[str, Callable] = {}
 
 _TASK_MODULES = [
     ("cartpole", ["Cartpole"]),
+    ("hand", ["HandReorient"]),
     ("humanoid", ["HumanoidStand", "HumanoidWalk"]),
     ("quadrotor", ["Quadrotor"]),
     ("quadruped", ["QuadrupedFlat"]),
+    ("rubik", ["Rubik", "CubeSolving"]),
     ("swimmer", ["Swimmer"]),
     ("tracking", ["HumanoidTracking"]),
 ]

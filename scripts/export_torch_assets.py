@@ -32,6 +32,9 @@ ASSETS = {
     "Humanoid Walk": "humanoid_walk.npz",
     "Humanoid Track": "humanoid_track.npz",
     "Quadrotor": "quadrotor.npz",
+    "Rubik": "rubik.npz",
+    "Cube Solving": "cube_solving.npz",
+    "Hand Reorient": "hand_reorient.npz",
 }
 
 

@@ -74,8 +74,9 @@ def test_ground_class_and_kept_pairs_match_jax(name):
   with pytest.raises(NotImplementedError) as err:
     tstep.build_rollout_kernel(lossy, 4, 1)
   msg = str(err.value)
-  assert "friction loss" in msg and "body-body pairs" in msg
+  assert "friction loss" in msg and "ball joints" in msg
   assert "site" not in msg and "capsule" not in msg and "aux" not in msg
+  assert "body-body" not in msg
 
 
 def test_quadruped_feet_filters_keep_the_four_feet():

@@ -36,8 +36,9 @@ from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from tests import models as tm
 from tests.torch_port_helpers import (BALL, DROP, DROP_GEOMS, LIMITED,
-                                      MIXED_CONTACTS, clearances,
-                                      models_from_xml, riccati_problem)
+                                      MIXED_CONTACTS, PAIR_GEOMS, clearances,
+                                      models_from_xml, pair_states, pair_xml,
+                                      riccati_problem)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-7
@@ -366,6 +367,67 @@ def _run_riccati_host(kern, prob, reg, tmp_path):
   assert lib.riccati_backward(*[ptr(x) for x in ins], ptr(ks), ptr(kmats),
                               ptr(out), ptr(scratch), None) == 0
   return ks, kmats, out
+
+
+@pytest.mark.parametrize("cone", ["pyramidal", "elliptic"])
+@pytest.mark.parametrize("kind", sorted(PAIR_GEOMS))
+def test_cuda_source_body_pair_matches_plain(kind, cone, tmp_path):
+  """The body-pair branch (LR_BODY): a hinged arm's geom and a free body's
+  in contact at five distances (a point in a box also with its centre
+  inside), 6 recorded steps, pyramidal condim 3 and elliptic condim 6."""
+  condim, impratio = (3, 1.0) if cone == "pyramidal" else (6, 10.0)
+  _, pm, _ = models_from_xml(pair_xml(kind, cone, condim, impratio))
+  kern = tstep.build_rollout_kernel(pm, 6, 1, body_pairs=True,
+                                    _table_float=np.float64)
+  assert kern.build_defines()["LR_BODY"] == 1
+  qpos, qvel = pair_states(kind, pm.nv, np.random.default_rng(5))
+  qpos, qvel = torch.as_tensor(qpos), torch.as_tensor(qvel)
+  values = torch.zeros((1, qpos.shape[1]), dtype=torch.float64)
+  want = kern.plain(qpos, qvel, values[:0])
+  got = torch.zeros_like(want)
+  _run_host(kern, [got], qpos, qvel, values, None, tmp_path)
+  assert torch.isfinite(want).all()
+  torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["Rubik", "Cube Solving", "Hand Reorient"])
+def test_cuda_source_hand_task_cost_sums_match_plain(name, tmp_path):
+  """The path builds of the hand tasks (their planning contacts, body pairs
+  and residuals) in cost-sum mode, H=2, K=4, from home poses with the hand
+  perturbed (Rubik's fingertips 14 mm into each other at home); Rubik's
+  tables are past the 64 KB of constant memory and live in global
+  memory."""
+  pt = tregistry.get_task(name, device="cpu")
+  spec = pt.lane_residual_spec()
+  cs = pt.cost_spec
+  m = pt.plan_model
+  horizon, p, k = 2, 3, 4
+  kern = tstep.build_rollout_kernel(
+      m, horizon, p, residual=spec, naux=spec["naux"], record_states=False,
+      cost_terms=tuple(zip(cs.norm_types, cs.dims)),
+      contact_geoms=getattr(pt, "plan_contact_geoms", None), body_pairs=True,
+      body_pair_types=getattr(pt, "plan_body_pair_types", None),
+      _table_float=np.float64)
+  defs = kern.build_defines()
+  assert defs["LR_BODY"] == 1
+  assert defs["LR_CTAB_GLOBAL"] == int(name == "Rubik")
+  rng = np.random.default_rng(6)
+  qpos = torch.as_tensor(np.tile(pt.home_qpos[:, None], (1, k)))
+  qpos[:pt._nhand] += _rand(rng, pt._nhand, k, scale=0.05)
+  qvel = _rand(rng, m.nv, k, scale=0.05)
+  lo = m.actuator_ctrlrange[:, 0].double().numpy()
+  hi = m.actuator_ctrlrange[:, 1].double().numpy()
+  values = torch.as_tensor(rng.uniform(lo, hi, (k, p, m.nu)).reshape(
+      k, p * m.nu).T.copy())
+  aux = torch.cat([spec["make_aux"](pt.make_data(), pt.residual_params),
+                   cs.norm_params[:, :2].reshape(-1)])
+  aux = aux.double()[:, None].repeat(1, k).contiguous()
+  want = kern.plain(qpos, qvel, values, aux)
+  got = [torch.zeros_like(w) for w in want]
+  _run_host(kern, got, qpos.contiguous(), qvel, values, aux, tmp_path)
+  for g, w in zip(got, want):
+    assert torch.isfinite(w).all()
+    torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("reg_type", [0, 1, 2, 3])

@@ -21,7 +21,8 @@ from tests.torch_port_helpers import to_np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 TASKS = ["Quadruped Flat", "Cartpole", "Swimmer", "Humanoid Stand",
-         "Humanoid Walk", "Humanoid Track", "Quadrotor"]
+         "Humanoid Walk", "Humanoid Track", "Quadrotor", "Rubik",
+         "Cube Solving", "Hand Reorient"]
 
 
 def _exporter():
@@ -103,6 +104,13 @@ def test_task_surface_equals_jax(name):
                                   err_msg=f.name)
   assert float(pt.plan_model.opt.timestep) == \
       float(jt.plan_model.opt.timestep)
+  # the planning contacts
+  assert getattr(pt, "plan_contact_geoms", None) == \
+      getattr(jt, "plan_contact_geoms", None)
+  assert getattr(pt, "plan_body_pairs", False) == \
+      getattr(jt, "plan_body_pairs", False)
+  assert getattr(pt, "plan_body_pair_types", None) == \
+      getattr(jt, "plan_body_pair_types", None)
   if name == "Quadruped Flat":
     assert pt.plan_contact_geoms == jt.plan_contact_geoms
     assert pt.lane_modes == jt.lane_modes
@@ -137,8 +145,9 @@ def test_task_from_record_and_data_from_numpy():
   assert d.qpos.tolist() == pytest.approx([0.1, 0.2])
   assert float(d.time) == 0.5 and d.qvel.shape == (2,)
   assert tregistry.task_names() == [
-      "Cartpole", "Humanoid Stand", "Humanoid Track", "Humanoid Walk",
-      "Quadrotor", "Quadruped Flat", "Swimmer"]
+      "Cartpole", "Cube Solving", "Hand Reorient", "Humanoid Stand",
+      "Humanoid Track", "Humanoid Walk", "Quadrotor", "Quadruped Flat",
+      "Rubik", "Swimmer"]
   with pytest.raises(KeyError):
     tregistry.get_task("Walker", device="cpu")
 
@@ -206,11 +215,11 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
     assert hit is None, f"{path}: {hit.group(0)!r}"
   csrc = os.path.join(ROOT, "mujoco_mpc_tpu_torch", "ops", "csrc")
   assert sorted(os.listdir(csrc)) == [
-      "chol_solve_lanes.cu", "humanoid_common.cuh", "lane_math.cuh",
-      "lane_rollout.cu", "residual_humanoid.cuh", "residual_none.cuh",
-      "residual_quadrotor.cuh", "residual_quadruped.cuh",
-      "residual_swimmer.cuh", "residual_tracking.cuh", "riccati_backward.cu",
-      "score_fused.cu"]
+      "chol_solve_lanes.cu", "cube_common.cuh", "humanoid_common.cuh",
+      "lane_math.cuh", "lane_rollout.cu", "residual_hand.cuh",
+      "residual_humanoid.cuh", "residual_none.cuh", "residual_quadrotor.cuh",
+      "residual_quadruped.cuh", "residual_rubik.cuh", "residual_swimmer.cuh",
+      "residual_tracking.cuh", "riccati_backward.cu", "score_fused.cu"]
   for name in os.listdir(csrc):
     with open(os.path.join(csrc, name)) as f:
       text = f.read()
