@@ -73,13 +73,15 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      lane planner with one rollout launch and no host synchronisation an
      iteration;
   8. the rollout kernel's body-body contact pairs: `body_pairs` (each
-     build's table bytes, whether its contact tables are in global memory,
-     ptxas lines), `kernels` cases `rubik_cost_sums`,
+     build's table bytes, whether its contact tables are staged in shared
+     memory, ptxas lines), `kernels` cases `rubik_cost_sums`,
      `cube_solving_cost_sums`, `hand_reorient_cost_sums` (each path's own
      build at its shape, K=512, H=16, on its own inputs, returns against the
      plain version's, times and bound) and
      `{rubik_boxbox,rubik_elliptic,cube_solving,hand_reorient}_states_step_by_step`
-     (states builds at K=512, H=3 from perturbed home poses; Rubik at H=2
+     (states builds at K=512, H=3 from perturbed home poses, the hand
+     tasks' cubes moved into a fingertip where a random shift finds one
+     and their capsule-box rows asserted; Rubik at H=2
      with its path's pairs and its box-box pairs, its knobs enlarged until
      adjacent knobs interpenetrate, and with elliptic cones; every step
      repeated by the plain version beside the nudged control, the recorded
@@ -91,7 +93,9 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
   9. prints one JSON line describing every kernel (the rollout kernel by
      build: main path, feedback, humanoid track, humanoid stand, site,
      rubik, cube solving, hand reorient, and the checks-only builds rubik
-     box-box and rubik elliptic with `on_path: false`), the card line, and
+     box-box and rubik elliptic with `on_path: false`; each rollout build
+     with its `layout`: lanes a team, teams a block, shared memory, where
+     its contact tables live, workspace, ptxas lines), the card line, and
      `{"ok": true, ...}` as the last line.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
@@ -664,6 +668,27 @@ def lane_path(task, cfg, iterations, name, counters, card, device):
   return launches["rollout"]
 
 
+def b1_layout(kern, k):
+  """A rollout build's launch at K=k: lanes a team, teams a block, dynamic
+  shared memory a block, whether its contact tables are staged in shared
+  memory (else read from global memory through __ldg), global workspace a
+  candidate (active rows past the shared-memory caps), and ptxas's
+  registers, stack and spill lines."""
+  from mujoco_mpc_tpu_torch.ops import _build, step_lane
+
+  lib = kern.library()
+  team = lib.lane_team()
+  tpb = step_lane.teams_per_block(
+      k, team, lib.lane_smem_bytes,
+      torch.cuda.get_device_properties(0).multi_processor_count)
+  path = _build.library_path("lane_rollout.cu", kern.build_defines())[0]
+  return dict(team=team, teams_per_block=tpb,
+              smem_bytes_per_block=lib.lane_smem_bytes(tpb),
+              tables_in_shared=bool(lib.lane_ctab_in_shared()),
+              workspace_floats_per_candidate=lib.lane_workspace_floats(),
+              ptxas=_build.BUILD_LOG.get(path, {}).get("ptxas"))
+
+
 def rollout_entry(name, row, path, launches, **extra):
   """The summary entry of one rollout-kernel build held to its plain
   version by `cost_sums_check` (or `body_states_check`)."""
@@ -846,12 +871,18 @@ def ground_site_aux(tasks, kernels, counters, card, device):
                                device)
 
   # the quadrotor's build carries the site transmission
+  def layout(name):
+    return b1_layout(kernels[f"{name}_cost_sums"], checked[name]["K"])
+
   return [rollout_entry("humanoid_track", checked["humanoid_track"],
-                        "humanoid_track_path", launches),
+                        "humanoid_track_path", launches,
+                        layout=layout("humanoid_track")),
           rollout_entry("humanoid_stand", checked["humanoid_stand"],
-                        "humanoid_stand_path", launches),
+                        "humanoid_stand_path", launches,
+                        layout=layout("humanoid_stand")),
           dict(rollout_entry("quadrotor", checked["quadrotor"],
-                             "quadrotor_path", launches),
+                             "quadrotor_path", launches,
+                             layout=layout("quadrotor")),
                name="step_lane.rollout[site]")]
 
 
@@ -909,11 +940,39 @@ def body_pair_builds(device):
   return tasks, kernels, models
 
 
-def body_states_check(kern, task, m, select, face_std, rng, gen, device):
+def touch_cube(m, select, qpos0, nhand, rng, device, trials=64):
+  """qpos0 with each candidate's cube moved by the first of `trials` random
+  translations (up to 6 cm a side) that puts a fingertip capsule into it
+  (the deepest capsule-box gap between -3 and -0.5 mm), where one does;
+  and the number of candidates moved."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  from mujoco_mpc_tpu_torch.physics.model import GEOM_BOX, GEOM_CAPSULE
+
+  k = qpos0.shape[1]
+  shifts = torch.as_tensor(rng.uniform(-0.06, 0.06, (trials, 3)).astype(
+      np.float32)).to(device)
+  q = qpos0[:, None, :].repeat(1, trials, 1)
+  q[nhand:nhand + 3] += shifts.T[:, :, None]
+  gaps = step_lane.contact_gaps(m, q.reshape(m.nq, -1), **select)
+  deepest = torch.stack([g for types, _, g in gaps
+                         if tuple(types) == (GEOM_CAPSULE, GEOM_BOX)]).amin(
+                             dim=0).reshape(trials, k)
+  ok = (deepest <= -0.0005) & (deepest >= -0.003)
+  first = torch.argmax(ok.int(), dim=0)
+  found = ok.any(dim=0)
+  out = qpos0.clone()
+  out[nhand:nhand + 3] += torch.where(found[None], shifts[first].T,
+                                      torch.zeros_like(shifts[first].T))
+  return out.contiguous(), int(found.sum())
+
+
+def body_states_check(kern, task, m, select, face_std, rng, gen, device,
+                      touch=False):
   """One recorded rollout of a states build from perturbed home poses (the
   hand joints by 0.05 rad, the cube by 2 mm, the faces by `face_std` rad,
-  random velocities) held to its plain version: every step repeated from
-  the kernel's own state beside the nudged control (step_by_step; the
+  random velocities; with `touch`, the cube moved into a fingertip where
+  `touch_cube` finds a way) held to its plain version: every step repeated
+  from the kernel's own state beside the nudged control (step_by_step; the
   first step's from the plain version's rollout of the same inputs, which
   is also timed), and the returns of the recorded residual rows (the
   task's cost, mean over the horizon) against those of the plain version's
@@ -936,6 +995,9 @@ def body_states_check(kern, task, m, select, face_std, rng, gen, device):
   if face_std:
     qpos0[nhand + 7:] += torch.as_tensor(face_std * rng.standard_normal(
         (nq - nhand - 7, k)).astype(np.float32)).to(device)
+  touching = 0
+  if touch:
+    qpos0, touching = touch_cube(m, select, qpos0, nhand, rng, device)
   qvel0 = torch.as_tensor(0.05 * rng.standard_normal((nv, k)).astype(
       np.float32)).to(device)
   values = planner_candidates(task, k, p, body_config(task).exploration[0],
@@ -980,8 +1042,8 @@ def body_states_check(kern, task, m, select, face_std, rng, gen, device):
              nonfinite=int((~ok).sum()), residual_rows_plain_ms=rows_ms,
              kernel_ms=time_cuda(lambda: kern(*args), 5), plain_ms=plain_ms,
              bytes=nb, flops=nf, bytes_ms=bytes_ms, ops_ms=ops_ms,
-             active_rows=rows, tol_qpos=TOL_STEP_QPOS,
-             tol_qvel=TOL_STEP_QVEL, **steps)
+             active_rows=rows, touching_candidates=touching,
+             tol_qpos=TOL_STEP_QPOS, tol_qvel=TOL_STEP_QVEL, **steps)
   assert row["nonfinite"] <= TOL_NONFINITE_SHARE * k, row
   assert row["share_over_tol"] <= TOL_RETURN_SHARE, row
   assert steps["left_out_pairs"] <= TOL_NONFINITE_SHARE * steps["pairs"], row
@@ -1015,7 +1077,8 @@ def body_pairs(tasks, kernels, models, counters, card, device):
   ptxas = {name: _build.BUILD_LOG[_build.library_path(
       "lane_rollout.cu", d)[0]]["ptxas"] for name, d in defs.items()}
   tables = {name: dict(bytes=len(kernels[name].tables()),
-                       global_memory=bool(d["LR_CTAB_GLOBAL"]),
+                       in_shared_memory=bool(
+                           kernels[name].library().lane_ctab_in_shared()),
                        ncon=d["LR_NCON"], nbcon=d["LR_NBCON"],
                        nprow=d["LR_NPROW"], necon=d["LR_NECON"],
                        nsup=d["LR_NSUP"])
@@ -1040,12 +1103,17 @@ def body_pairs(tasks, kernels, models, counters, card, device):
   for name, (task, m, select) in models.items():
     states[name] = body_states_check(
         kernels[f"{name}_states"], task, m, select,
-        BOXBOX_FACE_STD if name == "rubik_boxbox" else 0.0, rng, gen, device)
+        BOXBOX_FACE_STD if name == "rubik_boxbox" else 0.0, rng, gen, device,
+        touch=name in ("cube_solving", "hand_reorient"))
     emit("kernels", case=f"{name}_states_step_by_step", card=card,
          **states[name])
-  # the box-box branch is held with rows in the solve
+  # the box-box branch is held with rows in the solve, and the hand tasks'
+  # fingertip-cube (capsule-box) branch too
   assert states["rubik_boxbox"]["active_rows"].get("box-box", 0) > 0, \
       states["rubik_boxbox"]["active_rows"]
+  for name in ("cube_solving", "hand_reorient"):
+    assert states[name]["active_rows"].get("capsule-box", 0) > 0, \
+        (name, states[name]["active_rows"])
 
   # (q) the paths
   launches = {}
@@ -1058,7 +1126,9 @@ def body_pairs(tasks, kernels, models, counters, card, device):
                                         device)
 
   def extra(name):
-    return dict(ptxas=ptxas[name], tables=tables[name])
+    k = K_BODY if name.endswith("_cost_sums") else K_BODY_CHECK
+    return dict(ptxas=ptxas[name], tables=tables[name],
+                layout=b1_layout(kernels[name], k))
 
   entries = [rollout_entry(key, checked[key], f"{key}_path", launches,
                            shape=dict(K=K_BODY, H=HORIZON_BODY),
@@ -2123,6 +2193,7 @@ def main():
       "bound_ms": bound_ms,
       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
       "library_ms": None,
+      "layout": b1_layout(kernels["quadruped_cost_sums"], K_MAIN),
   }, {
       "name": "step_lane.rollout[feedback]",
       "route": "cuda",
@@ -2135,6 +2206,7 @@ def main():
       "bound_ms": max(fb_bytes_ms, fb_ops_ms),
       "bound_by": "bytes" if fb_bytes_ms >= fb_ops_ms else "operations",
       "library_ms": None,
+      "layout": b1_layout(kernels["swimmer_feedback"], 8),
   }, {
       "name": "riccati_lane.backward",
       "route": "cuda",

@@ -121,14 +121,17 @@ def ilqg_policy_from_numpy(states, actions, times, gains, reg, reg_rate,
 
 def task_record(name: str, model: dict, plan_model: dict, cost_spec: dict,
                 residual_params, numerics: dict, keyframes: dict,
-                texts: dict) -> dict:
+                texts: dict, residual_names=()) -> dict:
   """Nested record of one compiled task: `model` / `plan_model` as from
   `model_fields`, `cost_spec` as from `cost_spec_fields`, the XML
-  residual parameters, the first value of every custom numeric, keyframe
-  qpos by name, and the custom texts."""
+  residual parameters and the names of their `residual_*` numerics in
+  MjModel order (entry i names residual_params[i]; the numerics dict is
+  stored with its keys sorted), the first value of every custom numeric,
+  keyframe qpos by name, and the custom texts."""
   return dict(
       name=name, model=model, plan_model=plan_model, cost_spec=cost_spec,
       residual_params=np.asarray(residual_params, dtype=np.float32),
+      residual_names=[str(n) for n in residual_names],
       numerics={k: float(v) for k, v in numerics.items()},
       keyframes={k: np.asarray(v, dtype=np.float64)
                  for k, v in keyframes.items()},

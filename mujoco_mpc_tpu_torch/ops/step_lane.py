@@ -5,22 +5,23 @@ build_rollout_kernel` (Pallas). The ENTIRE rollout — FK, composite-inertia
 mass matrix, RNE bias, passive forces, actuation, the in-kernel task
 residual, joint-limit and ground-contact constraint rows, the Newton
 constraint solve with its safeguarded line search, implicit-damping Euler —
-runs for every horizon step inside one CUDA kernel, one thread per
+runs for every horizon step inside one CUDA kernel, a team of lanes per
 candidate (ops/csrc/lane_rollout.cu). Device memory sees only the initial
 state, the spline nodes, the aux rows and the requested output (recorded
 states, residual rows, or per-term cost sums).
 
 What bounds it on an H100: latency, not bytes or arithmetic throughput.
-One launch reads and writes a few megabytes but runs a long sequential
-program per candidate whose small dense matrices (mass matrix, Newton
-Hessian, Cholesky factor) are indexed by loop variables and therefore live
-in thread-local memory; at 4096 candidates an SM holds one warp, so one
-thread's latency through the horizon is the launch time. The design keeps
-candidates on the last (contiguous) axis so every global access is
-coalesced, keeps all model constants in `__constant__` tables that a warp
-reads as broadcasts, and specialises the one generic source per model with
-compile-time dimensions so the hot loops have static bounds and unroll
-into straight-line code (PERF.md has the measurements).
+One launch reads and writes a few megabytes but runs a long dependent
+program per candidate. The design splits that program over a team of
+`team_size(nv, contacts)` lanes inside one warp (per body, per joint, per
+mass-matrix and Hessian entry, per contact and per row, and the Cholesky
+factorisations), culls every contact and limit row whose gap is >= 0 before
+the rows are built (exactly: such rows add zeros), keeps each candidate's
+working set and the model's tables in shared memory (the tables staged by
+Hopper's bulk asynchronous copy), and specialises the one generic source
+per model with compile-time dimensions. Candidates stay on the last
+(contiguous) axis of every array in device memory (PERF.md has the
+measurements).
 
 Beside the kernel stands its plain PyTorch version: the same step on
 (dim, K) tensors, a direct reading of the reference `step_body`, with
@@ -38,8 +39,10 @@ or elliptic cone blocks at condim 3/4/6 with impratio), and, opted in with
 per sphere or segment pair, capsule end in a box or box corner in the other
 box, its frame built per candidate from the normal, both bodies'
 Jacobians), task residuals with static and per-step aux rows. Ball joints,
-equality constraints, friction loss and activation states are not ported
-yet: `supports` returns False for them and `build_rollout_kernel` raises.
+equality constraints, friction loss and activation states are outside the
+rollout kernel's class, as in the JAX package
+(`mujoco_mpc_tpu/ops/step_lane.py` supports): `supports` returns False for
+them and `build_rollout_kernel` raises.
 
 Two control modes: the zero-order-hold spline of the sampling planners, and
 the feedback law of iLQG's line searches (`feedback=True`),
@@ -1348,18 +1351,11 @@ def _pad(a, shape, dtype) -> np.ndarray:
   return out
 
 
-# the kernel keeps its tables in __constant__ memory (64 KB a module) until
-# they outgrow this; then the per-point and per-row tables move to global
-# memory (`LR_CTAB_GLOBAL`)
-CONSTANT_BYTES = 63 * 1024
-
-
 def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
                  bodies: list, fluid: list, cost_terms, residual,
                  table_float=np.float32) -> tuple:
   """Bytes of the kernel's tables (field order of `TablesHead`, then of
-  `ContactTables` — its last member, or a global-memory symbol past
-  CONSTANT_BYTES — in ops/csrc/lane_rollout.cu, then the task's constant
+  `ContactTables` in ops/csrc/lane_rollout.cu, then the task's constant
   block) and the dimensions they imply. Contact index ci runs over the
   ground contact points, then the body contact entries."""
   nb, nj, nv, nu, nq = m.nbody, m.njnt, m.nv, m.nu, m.nq
@@ -1368,19 +1364,20 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       len(allc)
   nsup = max([len(con["support"]) for con in allc] + [1])
   elliptic = c["cone"] == 1
-  prow_con, prow_smu, econ_con = [], [], []
+  # pyramidal / condim-1 rows in contact order; a pyramidal contact's rows
+  # start at con_prow[ci]
+  prow_smu, con_prow, econ_con = [], [], []
   for ci, con in enumerate(allc):
+    con_prow.append(len(prow_smu))
     if con["condim"] == 1:
-      prow_con.append(ci)
       prow_smu.append(0.0)
     elif elliptic:
       econ_con.append(ci)
     else:
       for a in range(con["condim"] - 1):
         for sign in (1.0, -1.0):
-          prow_con.append(ci)
           prow_smu.append(sign * float(con["fri"][a]))
-  nprow, necon = len(prow_con), len(econ_con)
+  nprow, necon = len(prow_smu), len(econ_con)
   nterm = len(cost_terms) if cost_terms else 0
   anc = np.asarray(m.dof_ancestor_mask) > 0
   h = c["timestep"]
@@ -1408,6 +1405,21 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   fluid_on = np.zeros(nb, i32)
   for fl in fluid:
     fluid_on[fl["body"]] = 1
+  # the tree by levels: bodies ordered by depth (the world alone at depth
+  # 0), where each level starts, and each body's children in descending
+  # index order (the order a serial sum over the bodies adds them in)
+  parent = [int(v) for v in np.asarray(m.body_parentid)]
+  depth = [0] * nb
+  for b in range(1, nb):
+    depth[b] = depth[parent[b]] + 1
+  nlvl = max(depth) if nb > 1 else 0
+  lvl_body = sorted(range(nb), key=lambda b: (depth[b], b))
+  lvl_start = [sum(1 for b in range(nb) if depth[b] < d)
+               for d in range(nlvl + 2)]
+  children = [[c for c in range(nb - 1, 0, -1) if parent[c] == b]
+              for b in range(nb)]
+  child_start = np.cumsum([0] + [len(ch) for ch in children])
+  child_list = [c for ch in children for c in ch]
 
   def fluid_col(get, width):
     out = np.zeros((nb, width), np.float64)
@@ -1435,6 +1447,8 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       ([d for _, d in (cost_terms or ())], i32, (_d1(nterm),)),
       (np.asarray(m.body_dof_mask) > 0, i32, (nb, _d1(nv))),
       (fluid_on, i32, (nb,)),
+      (lvl_body, i32, (nb,)), (lvl_start, i32, (nlvl + 2,)),
+      (child_start, i32, (nb + 1,)), (child_list, i32, (_d1(nb - 1),)),
       ([h], f32, (1,)), (c["gravity"], f32, (3,)),
       (c["body_pos"], f32, (nb, 3)), (c["body_quat"], f32, (nb, 4)),
       (c["body_ipos"], f32, (nb, 3)), (c["body_iquat"], f32, (nb, 4)),
@@ -1477,8 +1491,7 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
       ([con["condim"] for con in allc], i32, nct1),
       ([len(con["support"]) for con in allc], i32, nct1),
       (sup, i32, sup.shape),
-      (prow_con, i32, (_d1(nprow),)),
-      (econ_con, i32, (_d1(necon),)),
+      (con_prow, i32, nct1),
       col(contacts, "geom_pos", f32, (_d1(ncon), 3)),
       col(contacts, "radius", f32, nc1),
       col(contacts, "p_pl", f32, (_d1(ncon), 3)),
@@ -1513,10 +1526,44 @@ def _pack_tables(m: Model, c: dict, limits: list, contacts: list,
   # rows every elliptic block carries: the largest condim among them
   erows = max([allc[ci]["condim"] for ci in econ_con] + [1])
   dims = dict(NLIMJ=nlimj, NCON=ncon, NBCON=nbcon, BODY=int(nbcon > 0),
+              NLVL=nlvl,
               NPROW=nprow, NECON=necon, NSUP=nsup, EROWS=erows,
-              FLUID=int(bool(fluid)), SITE=int(any(site)),
-              CTAB_GLOBAL=int(len(blob) > CONSTANT_BYTES))
+              FLUID=int(bool(fluid)), SITE=int(any(site)))
   return blob, dims
+
+
+# Threads a block of the rollout kernel may have (its __launch_bounds__),
+# and the dynamic shared memory a block may opt into on an H100.
+MAX_THREADS, SMEM_MAX = 256, 232448
+# Scalar rows and elliptic blocks a team keeps in shared memory; active
+# rows past them go to a per-candidate global workspace. A model whose
+# scalar rows are limit sides only (Quadruped Flat: 24, rarely active)
+# keeps LIMIT_ROW_CAP of them, so that two blocks of teams share an SM.
+ROW_CAP, LIMIT_ROW_CAP, BLK_CAP = 64, 8, 8
+
+
+def team_size(nv: int, ncontacts: int) -> int:
+  """Lanes of the rollout kernel's team per candidate (LR_TEAM), from the
+  model's dofs and contact points. Measured with scripts/torch_lane_sweep.py
+  (PERF.md): a full warp for the big models (Rubik, the humanoid: nv 21-27,
+  75-230 contact points, planned at K=512, where each SM holds only ~4
+  candidates and the lanes are the parallelism there is) and for Quadruped
+  Flat (nv 18, K=4096: a lane per dof lets the Cholesky factorisations
+  keep a row in each lane), 8 for the small ones."""
+  if nv >= 16 or ncontacts > 32:
+    return 32
+  return 8
+
+
+def teams_per_block(k: int, team: int, smem_bytes: Callable[[int], int],
+                    n_sm: int) -> int:
+  """Teams in a block of the rollout kernel: enough blocks to give every SM
+  one (K / n_sm teams each), within MAX_THREADS threads and SMEM_MAX bytes
+  of shared memory (`smem_bytes(teams)`)."""
+  tpb = max(1, min(-(-k // max(n_sm, 1)), MAX_THREADS // team))
+  while tpb > 1 and smem_bytes(tpb) > SMEM_MAX:
+    tpb -= 1
+  return tpb
 
 
 def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
@@ -1526,7 +1573,10 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                          record_states: bool = True,
                          cost_terms=None, feedback: bool = False,
                          body_pairs: bool = False, body_pair_types=None, *,
-                         _block: int = 32,
+                         _team: Optional[int] = None,
+                         _teams_per_block: Optional[int] = None,
+                         _row_cap: Optional[int] = None,
+                         _blk_cap: Optional[int] = None,
                          _profile: bool = False,
                          _table_float=np.float32) -> Callable:
   """Returns fn(qpos0 (nq,K), qvel0 (nv,K), values (P*nu,K), aux=None) for
@@ -1572,10 +1622,12 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   candidates (`.stride`, `.feedback_ctrl` expose the layout and the law).
 
   The underscored arguments are for measuring tools and tests only:
-  `_block` threads per CUDA block (one warp per block spreads the
-  flagship's 4096 candidates over the most SMs; 64 and 128 were measured
-  slower there, scripts/torch_lane_sweep.py), `_profile` compiles the
-  per-section cycle counters in (scripts/torch_lane_profile.py),
+  `_team` lanes per candidate (default `team_size`), `_teams_per_block`
+  teams in a CUDA block (default `teams_per_block`), `_row_cap` /
+  `_blk_cap` the active scalar rows / elliptic blocks a team keeps in
+  shared memory before the global workspace (default ROW_CAP / BLK_CAP,
+  cut to what the model can have), `_profile` compiles the per-section
+  cycle and active-row counters in (scripts/torch_lane_profile.py),
   `_table_float` is the element type of the packed float tables (a
   host-compiled float64 build of the source, tests).
 
@@ -1587,9 +1639,9 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   missing = unsupported(m, ground_only=True, body_pairs=body_pairs)
   if missing is not None:
     raise NotImplementedError(
-        f"model outside the ported kernel class: {missing} (see "
-        "ops/step_lane.py: ball joints, equality constraints, friction loss "
-        "and activation states are not ported yet)")
+        f"model outside the rollout kernel's class, as in the JAX package: "
+        f"{missing} (ball joints, equality constraints, friction loss and "
+        "activation states are outside it)")
   c = _static(m)
   nq, nv, nu = m.nq, m.nv, m.nu
   n_newton = int(m.opt.iterations) if solver_iters is None \
@@ -1710,17 +1762,25 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
     return torch.stack(recorded), final
 
   # ---- CUDA route: built and loaded at the first launch ----
-  state = dict(lib=None, blob=None)
+  state = dict(lib=None, blob=None, ws={})
 
   def defines():
     blob, dims = _pack_tables(m, c, limits, contacts, bodies, fluid,
                               cost_terms, residual, _table_float)
     header = residual["header"] if residual is not None \
         else "residual_none.cuh"
+    team = int(_team) if _team is not None else team_size(
+        nv, dims["NCON"] + dims["NBCON"])
+    max_rows = 2 * dims["NLIMJ"] + dims["NPROW"]
+    cap = ROW_CAP if dims["NPROW"] else LIMIT_ROW_CAP
+    row_cap = min(max_rows, cap if _row_cap is None else int(_row_cap))
+    blk_cap = min(dims["NECON"],
+                  BLK_CAP if _blk_cap is None else int(_blk_cap))
     d = dict(NQ=nq, NV=nv, NU=nu, NBODY=m.nbody, NJNT=m.njnt, H=horizon,
              P=num_nodes, NAUX=naux, NAUXS=naux_static, NTERM=nterm, NR=nr,
              N_NEWTON=n_newton,
-             N_LS=n_ls, MODE=mode, CONE=int(c["cone"]), BLOCK=int(_block),
+             N_LS=n_ls, MODE=mode, CONE=int(c["cone"]), TEAM=team,
+             ROWCAP=row_cap, BLKCAP=blk_cap,
              PROFILE=int(_profile), CTRL=int(feedback),
              **dims)
     out = {f"LR_{k}": v for k, v in d.items()}
@@ -1736,8 +1796,12 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       lib.lane_set_tables.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                       ctypes.c_void_p]
       lib.lane_rollout.restype = ctypes.c_int
-      lib.lane_rollout.argtypes = [ctypes.c_void_p] * 7 + [
-          ctypes.c_int, ctypes.c_void_p]
+      lib.lane_rollout.argtypes = [ctypes.c_void_p] * 8 + [
+          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+      for fn in ("lane_team", "lane_ctab_in_shared", "lane_workspace_floats",
+                 "lane_smem_bytes"):
+        getattr(lib, fn).restype = ctypes.c_int
+      lib.lane_smem_bytes.argtypes = [ctypes.c_int]
       if lib.lane_tables_size() != len(blob):
         raise RuntimeError(
             f"constant-table layout mismatch: kernel expects "
@@ -1782,6 +1846,17 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       table = values  # never read
     lib = library()
     f32 = dict(dtype=torch.float32, device=dev)
+    team = lib.lane_team()
+    tpb = int(_teams_per_block) if _teams_per_block is not None else \
+        teams_per_block(k, team, lib.lane_smem_bytes,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+    # the global workspace for active rows past the shared-memory caps
+    ws_key = (str(dev), k)
+    if ws_key not in state["ws"]:
+      state["ws"][ws_key] = torch.empty(
+          max(lib.lane_workspace_floats() * k, 1), **f32)
+    ws = state["ws"][ws_key]
     if mode == MODE_STATES:
       out0 = torch.empty((horizon, nq + nv + nr, k), **f32)
       out1 = out0
@@ -1803,7 +1878,7 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
       err = lib.lane_rollout(qpos0.data_ptr(), qvel0.data_ptr(),
                              values.data_ptr(), aux.data_ptr(),
                              table.data_ptr(), out0.data_ptr(),
-                             out1.data_ptr(), k, stream)
+                             out1.data_ptr(), ws.data_ptr(), k, tpb, stream)
     if err != 0:
       raise RuntimeError(f"lane_rollout launch failed: CUDA error {err}")
     launch_count += 1
@@ -1846,6 +1921,7 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
   rollout.step_array = step_array
   rollout.residual_array = residual_array
   rollout.build_defines = lambda: defines()[0]
+  rollout.library = library
   rollout.tables = lambda: defines()[1]
   rollout.mode = mode
   rollout.stride = stride

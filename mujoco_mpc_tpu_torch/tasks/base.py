@@ -78,6 +78,12 @@ class Task:
       return [s for s in data.replace("\x00", "|").split("|") if s]
     return ["default"]
 
+  @property
+  def residual_names(self) -> list:
+    """Names of the `residual_*` numerics in MjModel order: entry i names
+    residual_params[i]."""
+    return list(self.record["residual_names"])
+
   def config(self, name: str, default):
     """First value of the custom numeric `name`, or `default`."""
     return self.record["numerics"].get(name, default)

@@ -62,13 +62,17 @@ def build_record(name: str) -> dict:
               for i in range(mjm.nnumeric)}
   keyframes = {mjm.key(k).name: np.array(mjm.key_qpos[k])
                for k in range(mjm.nkey)}
+  # the order parse_residual_params concatenates them in
+  residual_names = [mjm.numeric(i).name for i in range(mjm.nnumeric)
+                    if mjm.numeric(i).name.startswith("residual_")]
   return convert.task_record(
       name=name,
       model=convert.model_fields(task.model),
       plan_model=convert.model_fields(task.plan_model),
       cost_spec=convert.cost_spec_fields(jax_spec.parse_cost_spec(mjm)),
       residual_params=np.asarray(jax_spec.parse_residual_params(mjm)),
-      numerics=numerics, keyframes=keyframes, texts=_text_items(mjm))
+      numerics=numerics, keyframes=keyframes, texts=_text_items(mjm),
+      residual_names=residual_names)
 
 
 def main():

@@ -136,6 +136,29 @@ def test_committed_record_equals_fresh_export(name):
   assert committed["name"] == name
 
 
+@pytest.mark.parametrize("name", TASKS)
+def test_committed_record_keeps_the_residual_parameter_order(name):
+  """The names of the residual parameters come back in MjModel order, the
+  order of residual_params (the record's numerics dict is sorted by name):
+  Quadruped Flat's first is residual_select_Gait (its XML's first)."""
+  jt = jregistry.get_task(name)
+  mjm = jt.mjm
+  want = [mjm.numeric(i).name for i in range(mjm.nnumeric)
+          if mjm.numeric(i).name.startswith("residual_")]
+  path = os.path.join(tbase.ASSET_DIR, _exporter().ASSETS[name])
+  with np.load(path, allow_pickle=False) as z:
+    record = convert.record_from_npz(z)
+  assert record["residual_names"] == want
+  assert tregistry.get_task(name, device="cpu").residual_names == want
+  numerics = record["numerics"]
+  np.testing.assert_array_equal(
+      record["residual_params"],
+      np.asarray([numerics[n] for n in want], np.float32))
+  if name == "Quadruped Flat":
+    assert want[0] == "residual_select_Gait"
+    assert float(record["residual_params"][0]) == 2.0
+
+
 def test_task_from_record_and_data_from_numpy():
   pt = tregistry.get_task("Cartpole", device="cpu")
   again = type(pt).from_record(pt.record, device="cpu")
@@ -216,7 +239,7 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
   csrc = os.path.join(ROOT, "mujoco_mpc_tpu_torch", "ops", "csrc")
   assert sorted(os.listdir(csrc)) == [
       "chol_solve_lanes.cu", "cube_common.cuh", "humanoid_common.cuh",
-      "lane_math.cuh", "lane_rollout.cu", "residual_hand.cuh",
+      "lane_math.cuh", "lane_rollout.cu", "lane_team.cuh", "residual_hand.cuh",
       "residual_humanoid.cuh", "residual_none.cuh", "residual_quadrotor.cuh",
       "residual_quadruped.cuh", "residual_rubik.cuh", "residual_swimmer.cuh",
       "residual_tracking.cuh", "riccati_backward.cu", "score_fused.cu"]
