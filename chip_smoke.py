@@ -447,6 +447,40 @@ def spd_batch(n, k, rng, device):
           torch.as_tensor(b.astype(np.float32)).to(device))
 
 
+def device_ms(fn, reps, kernel):
+  """Mean device milliseconds of the launches of `kernel` (a substring of
+  the kernel's name) made by `reps` calls of fn(), from torch.profiler (the
+  kernel's own time on the card, without the host's time to launch it);
+  None where the profiler shows no device time."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  total, count = 0.0, 0
+  for ev in prof.key_averages():
+    if kernel in ev.key:
+      us = getattr(ev, "device_time_total", None)
+      total += getattr(ev, "cuda_time_total", 0.0) if us is None else us
+      count += ev.count
+  return total / 1e3 / count if count and total > 0 else None
+
+
+def call_ms(fn, reps):
+  """Host-clock milliseconds of one call of fn(), not synchronised: what
+  the caller waits for before its next call."""
+  fn()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(reps):
+    fn()
+  t1 = time.perf_counter()
+  torch.cuda.synchronize()
+  return (t1 - t0) * 1e3 / reps
+
+
 def host_ms(fn, reps=3):
   """Host-clock milliseconds of fn() (a plain version, launch-bound), after
   one warm call."""
@@ -1258,6 +1292,11 @@ def main():
   emit("build", seconds=round(build_s, 2), dir=_build.build_dir(),
        libraries={name: dict(_build.BUILD_LOG[path])
                   for name, (path, _) in procs.items()})
+  # the dynamic shared memory of B2 and B4 (ptxas counts static only)
+  emit("build", case="layouts",
+       riccati={f"{name}_reg{rt}": k.layout
+                for (name, rt), k in riccati.items()},
+       chol_solve_lanes={n: cholesky.layout(n) for n in chol_ns})
 
   # ---- 3. kernels vs their plain versions, on the card ----
   # (a) Cartpole, recorded states
@@ -1492,6 +1531,8 @@ def main():
                          tight_limits=False, device=device)
   kern = riccati[("swimmer", 0)]
   riccati_ms = time_cuda(lambda: kern(*prob, reg), 50)
+  riccati_device_ms = device_ms(lambda: kern(*prob, reg), 50,
+                                "riccati_backward")
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   for _ in range(3):                      # warm: the checks above ran it
@@ -1502,12 +1543,14 @@ def main():
   riccati_bytes_ms = r_bytes / H100_BYTES_PER_S * 1e3
   riccati_ops_ms = r_flops / H100_F32_FLOPS * 1e3
   emit("kernels", case="riccati_swimmer_time", kernel_ms=riccati_ms,
+       device_ms=riccati_device_ms, layout=kern.layout,
        plain_ms=riccati_plain_ms, bytes=r_bytes, flops=r_flops,
        bytes_ms=riccati_bytes_ms, ops_ms=riccati_ops_ms,
        dependent_steps=ILQG_HORIZON - 1, card=card)
 
   # (g) the same kernel at a quadruped's size, at the gate's largest size
-  # (workspace in global memory) and at Swimmer's own default horizon
+  # (its workspace just fits shared memory) and at Swimmer's own default
+  # horizon
   wide_rows = []
   for name, ndx_w, nu_w, t_w, tight in (
       ("quadruped_size", 36, 12, ILQG_HORIZON, True),
@@ -1522,8 +1565,10 @@ def main():
     wb, wf = riccati_work(ndx_w, nu_w, t_w, qp_iters)
     wide_rows.append(dict(
         name=name, ndx=ndx_w, nu=nu_w, T=t_w, tight_limits=tight,
-        kernel_ms=ms, workspace_in_shared_memory=bool(
-            kern.build_defines()["RB_SMEM"]),
+        kernel_ms=ms, device_ms=device_ms(lambda: kern(*prob, reg), 10,
+                                          "riccati_backward"),
+        workspace_in_shared_memory=kern.layout["workspace_in_shared_memory"],
+        layout=kern.layout,
         bound_ms=max(wb / H100_BYTES_PER_S, wf / H100_F32_FLOPS) * 1e3,
         tol_abs=atol, **row))
     assert row["within_tol"] and row["ok"] and row["ok_plain"], row
@@ -1715,9 +1760,17 @@ def main():
     within = bool(((x - xp).abs() <= TOL_CHOL + TOL_CHOL * xp.abs()).all())
     am, bm = a.permute(2, 0, 1).contiguous(), b.T.contiguous()[..., None]
     cb, co = chol_work(n, k)
+    vmapped = torch.func.vmap(cholesky.spd_solve)
     row = dict(n=n, K=k, max_abs_err=err, within_tol=within,
                kernel_ms=time_cuda(lambda: cholesky.chol_solve_lanes(a, b),
                                    50),
+               device_ms=device_ms(lambda: cholesky.chol_solve_lanes(a, b),
+                                   50, "chol_solve_lanes"),
+               host_ms_per_call=call_ms(
+                   lambda: cholesky.chol_solve_lanes(a, b), 200),
+               host_ms_per_vmapped_call=call_ms(
+                   lambda: vmapped(am, bm[..., 0]), 200),
+               layout=cholesky.layout(n),
                library_ms=time_cuda(lambda: torch.linalg.solve(am, bm), 20),
                plain_ms=host_ms(lambda: cholesky.chol_solve_lanes_plain(
                    a, b)),

@@ -5,9 +5,10 @@ Replaces the TPU kernel `mujoco_mpc_tpu/ops/cholesky.py:chol_solve_lanes`
 (Pallas): A (n, n, K), b (n, K) -> x (n, K) with A[..., k] x[:, k] =
 b[:, k]; an unrolled Cholesky factorisation whose diagonal is clamped at
 1e-10 before the square root, then two triangular solves. The kernel
-(ops/csrc/chol_solve_lanes.cu) runs one system per thread on the device
-function the rollout kernel uses; it is bound by bytes (see the note at the
-top of the source).
+(ops/csrc/chol_solve_lanes.cu) runs a team of lanes per system, one row a
+lane in registers, the pivot column moving by shuffles, with the systems
+staged through shared memory so that every global load and store is
+coalesced (see the note at the top of the source).
 
 One known difference from the Pallas kernel: each pivot is inverted once
 and multiplied with, where the Pallas kernel divides by it; the plain
@@ -34,7 +35,6 @@ from mujoco_mpc_tpu_torch.ops import _build
 
 EPS = 1e-10
 MAX_N = 32          # the kernel's gate: systems of 1 .. 32 unknowns
-BLOCK = 128
 
 # launches of the CUDA kernel made by any wrapper of this module
 # (incremented where a wrapper launches, nowhere else)
@@ -47,21 +47,50 @@ def supports(n: int) -> bool:
   return 1 <= n <= MAX_N
 
 
+def team_size(n: int) -> int:
+  """Lanes a system: one row a lane, the smallest power of two >= n from
+  8 up (scripts/torch_kernel_sweep.py --only tune)."""
+  return 8 if n <= 8 else 16 if n <= 16 else 32
+
+
+def systems_per_block(n: int, team: int) -> int:
+  """Systems a block stages: 32 (a row of 128 B) within 1,024 threads,
+  16 past n = 24, where a lane's row of registers would not fit the 64
+  registers a thread of a 1,024-thread block may have. At n = 18, K = 4,096
+  that is 128 blocks in one wave: no split of 4,096 systems over 132 SMs
+  gives an SM fewer than 32."""
+  return min(32 if n <= 24 else 16, 1024 // team)
+
+
 def build_defines(n: int) -> dict:
-  return dict(CS_N=n, CS_BLOCK=BLOCK)
+  """Compile-time sizes: n, lanes a system, systems a block."""
+  team = team_size(n)
+  return dict(CS_N=n, CS_TEAM=team, CS_SYS=systems_per_block(n, team))
 
 
-def _library(n: int):
+def layout(n: int) -> dict:
+  """Lanes a system, systems a block, threads and dynamic shared memory of
+  a block (the staged triangles and right-hand sides, rows of an odd
+  stride) for the library of n."""
+  d = build_defines(n)
+  team, systems = d["CS_TEAM"], d["CS_SYS"]
+  staged = n * (n + 1) // 2 + n
+  return dict(team=team, systems=systems, threads=team * systems,
+              shared_bytes=4 * staged * (systems | 1))
+
+
+def _function(n: int):
+  """The launcher of the library for n, bound once (argument types set)."""
   if n not in _LIBS:
     lib = _build.load("chol_solve_lanes.cu", build_defines(n))
     lib.chol_solve_lanes_n.restype = ctypes.c_int
-    lib.chol_solve_lanes.restype = ctypes.c_int
-    lib.chol_solve_lanes.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
     if lib.chol_solve_lanes_n() != n:
       raise RuntimeError(f"library built for n={lib.chol_solve_lanes_n()}, "
                          f"asked for n={n}")
-    _LIBS[n] = lib
+    fn = lib.chol_solve_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    _LIBS[n] = fn
   return _LIBS[n]
 
 
@@ -99,25 +128,37 @@ def chol_solve_lanes_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """The kernel on CUDA tensors. The launch path is short because the
+  robust path makes ~1,800 of these calls an iteration at n = 8, K = 16,
+  where the kernel takes ~2 us: the ctypes function is bound once, inputs
+  already contiguous are not copied, and the device context is entered only
+  when the tensors are not on the current device."""
   global launch_count
   n, k = b.shape
   if not supports(n):
     raise NotImplementedError(
         f"system size n={n} outside the batched Cholesky kernel's gate "
         f"(1..{MAX_N})")
+  dev = a.device
   if a.dtype != torch.float32 or b.dtype != torch.float32 or \
-      tuple(a.shape) != (n, n, k) or a.device != b.device:
+      a.shape != (n, n, k) or b.device != dev:
     raise ValueError(
         f"expected float32 a (n, n, K) and b (n, K) on one device, got "
-        f"{a.dtype} {tuple(a.shape)} on {a.device} and {b.dtype} "
+        f"{a.dtype} {tuple(a.shape)} on {dev} and {b.dtype} "
         f"{tuple(b.shape)} on {b.device}")
-  a, b = a.contiguous(), b.contiguous()
+  if not a.is_contiguous():
+    a = a.contiguous()
+  if not b.is_contiguous():
+    b = b.contiguous()
   x = torch.empty_like(b)
-  lib = _library(n)
-  with torch.cuda.device(a.device):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.chol_solve_lanes(a.data_ptr(), b.data_ptr(), x.data_ptr(), k,
-                               stream)
+  fn = _function(n)
+  if dev.index is None or dev.index == torch.cuda.current_device():
+    err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), k,
+             torch.cuda.current_stream(dev).cuda_stream)
+  else:
+    with torch.cuda.device(dev):
+      err = fn(a.data_ptr(), b.data_ptr(), x.data_ptr(), k,
+               torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"chol_solve_lanes launch failed: CUDA error {err}")
   launch_count += 1

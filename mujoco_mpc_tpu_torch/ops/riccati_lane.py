@@ -6,7 +6,9 @@ time over small dense matrices; as separate PyTorch ops every step is some
 hundred launches, so the time is launch overhead. The kernel
 (ops/csrc/riccati_backward.cu) runs the WHOLE sweep — Q expansions, the
 projected-Newton box QP with its free-set Gauss-Jordan inverse, the gain,
-the value update — inside one thread block.
+the value update — inside one thread block: the workspace in shared
+memory, the box QP in the registers of one warp, five block barriers a
+step.
 
 What bounds it on an H100: the dependent chain (T-1 steps of a fixed
 sequence of phases), not bytes or operations; see the note at the top of
@@ -37,6 +39,11 @@ REG_CONTROL, REG_STATE_CONTROL, REG_VALUE, REG_NONE = 0, 1, 2, 3
 # (incremented where a wrapper launches, nowhere else)
 launch_count = 0
 
+# what a profiling build's (RB_PROFILE) stamps of a step delimit
+PROFILE_PHASES = ("Vxx A, Vxx B, Qx, Qu", "Q expansions",
+                  "box QP (thread 0's warp)", "Quu k, P = Quu F inv, dv",
+                  "gain K, Quu K", "new Vx, new Vxx (symmetric)")
+
 # dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_LIMIT_BYTES = 232448
 
@@ -47,18 +54,33 @@ def supports(ndx: int, nu: int, horizon: int) -> bool:
 
 
 def workspace_floats(ndx: int, nu: int) -> int:
-  """Size of the kernel's workspace (W_TOTAL in the source)."""
-  return (3 * ndx * ndx + 5 * ndx * nu + 4 * nu * nu + 3 * ndx + 6 * nu + 3)
+  """Size of the kernel's workspace (W_TOTAL in the source), all of its
+  dynamic shared memory."""
+  return (2 * ndx * ndx + 5 * ndx * nu + 2 * nu * nu + nu * (nu | 1) +
+          3 * ndx + 4 * nu + 1)
+
+
+def block_size(ndx: int) -> int:
+  """Threads of the one block: 256 to ndx 32, else 512 (the sweep,
+  scripts/torch_kernel_sweep.py --only tune: the fastest of 64 to 1,024 at
+  ndx 16, 36 and 128; at 128 the QP warp's registers spill a little at 512
+  and a lot at 1,024)."""
+  return 256 if ndx <= 32 else 512
 
 
 def build_backward_kernel(ndx: int, nu: int, horizon: int,
-                          boxqp_iters: int, reg_type: int) -> Callable:
+                          boxqp_iters: int, reg_type: int, *,
+                          _profile: bool = False) -> Callable:
   """Returns fn(a, b, cx, cu, cxx, cxu, cuu, du_lower, du_upper, reg)
   -> (ks (T-1, nu), kmats (T-1, nu, ndx), (dv1, dv2), ok) with the same
   semantics as planners.ilqg.backward_pass. `reg` is a 0-d tensor (it stays
-  on the device: the kernel reads it from memory). The one block has 256
-  threads up to ndx 32 (a step's largest phase has ndx^2 outputs), else
-  1024.
+  on the device: the kernel reads it from memory). The one block has
+  `block_size(ndx)` threads and its workspace in shared memory at every
+  size of the gate (`fn.layout`).
+
+  A measuring build (scripts/torch_kernel_sweep.py): `_profile` builds with
+  -DRB_PROFILE=1, and each launch leaves the clock64() stamps of every
+  step's phases in `backward.last_profile` (T-1, stamps), step T-2 first.
   """
   if not supports(ndx, nu, horizon):
     raise ValueError(
@@ -67,26 +89,32 @@ def build_backward_kernel(ndx: int, nu: int, horizon: int,
   from mujoco_mpc_tpu_torch.planners import ilqg as ilqg_lib
 
   t_len = horizon
-  block = 256 if ndx <= 32 else 1024
+  block = block_size(ndx)
   ws_floats = workspace_floats(ndx, nu)
-  smem = 1 if 4 * ws_floats <= _SMEM_LIMIT_BYTES else 0
-  state = dict(lib=None)
+  smem = 4 * ws_floats
+  if smem > _SMEM_LIMIT_BYTES:
+    raise ValueError(f"workspace of {smem} B past the {_SMEM_LIMIT_BYTES} B "
+                     f"of shared memory a block may have")
+  state = dict(lib=None, fn=None)
 
   def defines():
     return dict(RB_NX=ndx, RB_NU=nu, RB_T=t_len, RB_QP_ITERS=boxqp_iters,
-                RB_REG_TYPE=reg_type, RB_BLOCK=block, RB_SMEM=smem)
+                RB_REG_TYPE=reg_type, RB_BLOCK=block,
+                **(dict(RB_PROFILE=1) if _profile else {}))
 
   def library():
     if state["lib"] is None:
       lib = _build.load("riccati_backward.cu", defines())
       lib.riccati_workspace_floats.restype = ctypes.c_int
-      lib.riccati_backward.restype = ctypes.c_int
-      lib.riccati_backward.argtypes = [ctypes.c_void_p] * 15
+      lib.riccati_profile_stamps.restype = ctypes.c_int
+      fn = lib.riccati_backward
+      fn.restype = ctypes.c_int
+      fn.argtypes = [ctypes.c_void_p] * 15
       if lib.riccati_workspace_floats() != ws_floats:
         raise RuntimeError(
             f"workspace layout mismatch: kernel expects "
             f"{lib.riccati_workspace_floats()} floats, wrapper {ws_floats}")
-      state["lib"] = lib
+      state["lib"], state["fn"] = lib, fn
     return state["lib"]
 
   def backward_plain(a, b, cx, cu, cxx, cxu, cuu, du_lower, du_upper, reg):
@@ -115,12 +143,16 @@ def build_backward_kernel(ndx: int, nu: int, horizon: int,
     ks = torch.empty((t_len - 1, nu), **f32)
     kmats = torch.empty((t_len - 1, nu, ndx), **f32)
     out = torch.empty((3,), **f32)
-    scratch = out if smem else torch.empty((ws_floats,), **f32)
+    prof = None
+    if _profile:
+      prof = torch.zeros((t_len - 1, lib.riccati_profile_stamps()),
+                         dtype=torch.int64, device=dev)
+      backward.last_profile = prof
     with torch.cuda.device(dev):
       stream = torch.cuda.current_stream().cuda_stream
-      err = lib.riccati_backward(
+      err = state["fn"](
           *[x.data_ptr() for x in ins], ks.data_ptr(), kmats.data_ptr(),
-          out.data_ptr(), scratch.data_ptr(), stream)
+          out.data_ptr(), None if prof is None else prof.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f"riccati_backward launch failed: CUDA error {err}")
     launch_count += 1
@@ -135,4 +167,6 @@ def build_backward_kernel(ndx: int, nu: int, horizon: int,
   backward.plain = backward_plain
   backward.build_defines = defines
   backward.workspace_floats = ws_floats
+  backward.layout = dict(block=block, shared_bytes=smem,
+                         workspace_in_shared_memory=True)
   return backward

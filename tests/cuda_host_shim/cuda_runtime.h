@@ -5,11 +5,13 @@
 // emulated with a block of ONE thread (its loops stride over all the
 // work), and a team of lanes with a team of ONE lane (LR_TEAM=1: every
 // shuffle, ballot and warp barrier is the identity). Compiled with
-// -DEMU_THREADS=1, the threads of a block run concurrently (std::thread),
-// a block being ONE team of lanes: __syncthreads and __syncwarp are one
-// barrier of the block, and shuffles and ballots exchange through it. A
-// barrier that some thread of the block never reaches aborts after a
-// timeout instead of hanging.
+// -DEMU_THREADS=1, the threads of a block run concurrently (std::thread):
+// __syncthreads is a barrier of the block, __syncwarp one of the thread's
+// warp (threads EMU_WARP w .. EMU_WARP (w + 1) - 1; EMU_WARP is 32 unless
+// a build sets a smaller warp to run fewer host threads), and shuffles and
+// ballots exchange within the warp through its barrier, so every thread of
+// a warp must make the same sequence of them. A barrier that some thread
+// never reaches aborts after a timeout instead of hanging.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -18,6 +20,9 @@
 #include <string.h>
 #include <stddef.h>
 #include <vector>
+#ifndef EMU_WARP
+#define EMU_WARP 32
+#endif
 #if EMU_THREADS
 #include <chrono>
 #include <condition_variable>
@@ -84,16 +89,17 @@ struct EmuBarrier {
     }
   }
 };
-static EmuBarrier emu_barrier;
-static double emu_slots[32];
+static EmuBarrier emu_barrier;            // the block's
+static EmuBarrier emu_warp_barrier[1024 / EMU_WARP];   // each warp's
+static double emu_slots[1024];
 #define __syncthreads() emu_barrier.arrive_and_wait()
-#define __syncwarp(...) emu_barrier.arrive_and_wait()
+#define __syncwarp(...) emu_warp_barrier[threadIdx.x / EMU_WARP].arrive_and_wait()
 template <class T>
 static T emu_exchange(T v, int src) {
   emu_slots[threadIdx.x] = (double)v;
-  emu_barrier.arrive_and_wait();
+  emu_warp_barrier[threadIdx.x / EMU_WARP].arrive_and_wait();
   const T out = (T)emu_slots[src];
-  emu_barrier.arrive_and_wait();
+  emu_warp_barrier[threadIdx.x / EMU_WARP].arrive_and_wait();
   return out;
 }
 template <class T>
@@ -111,13 +117,14 @@ static T __shfl_sync(unsigned, T v, int src, int w = 32) {
   return emu_exchange(v, threadIdx.x - threadIdx.x % w + src % w);
 }
 static unsigned __ballot_sync(unsigned, bool p) {
-  const int n = blockDim.x;
+  const int base = threadIdx.x - threadIdx.x % EMU_WARP;
+  const int n = blockDim.x - base < EMU_WARP ? blockDim.x - base : EMU_WARP;
   emu_slots[threadIdx.x] = p ? 1.0 : 0.0;
-  emu_barrier.arrive_and_wait();
+  emu_warp_barrier[threadIdx.x / EMU_WARP].arrive_and_wait();
   unsigned bits = 0;
   for (int i = 0; i < n; ++i)
-    if (emu_slots[i] != 0.0) bits |= 1u << i;
-  emu_barrier.arrive_and_wait();
+    if (emu_slots[base + i] != 0.0) bits |= 1u << i;
+  emu_warp_barrier[threadIdx.x / EMU_WARP].arrive_and_wait();
   return bits;
 }
 #define EMU_LAUNCH(kernel, grid, block, smem, ...)                \
@@ -126,6 +133,10 @@ static unsigned __ballot_sync(unsigned, bool p) {
     emu_smem_buffer.assign((size_t)(smem) + 16, 0);               \
     emu_dynamic_smem = emu_smem_buffer.data();                    \
     emu_barrier.count = (block);                                  \
+    for (int w_ = 0; w_ * EMU_WARP < (block); ++w_)               \
+      emu_warp_barrier[w_].count = (block) - EMU_WARP * w_ < EMU_WARP \
+                                       ? (block) - EMU_WARP * w_  \
+                                       : EMU_WARP;                \
     for (int b_ = 0; b_ < (grid); ++b_) {                         \
       blockIdx.x = b_;                                            \
       std::vector<std::thread> ts_;                               \

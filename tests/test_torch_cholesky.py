@@ -94,3 +94,22 @@ def test_kernel_route_of_the_pipeline_physics_matches_library_route():
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(getattr(ker, f), want, atol=1e-5 * scale,
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 37), (8, 16), (18, 4096), (32, 37)])
+def test_cuda_kernel_matches_plain_on_the_card(n, k):
+  """Needs the card: the batched Cholesky kernel against its plain version
+  at the gate's ends, the robust path's shape and the time's shape, K not a
+  multiple of the systems a block where it can be (the full comparison is
+  chip_smoke.py; run this with `pytest -m cuda`)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  a, b = _spd(n, k, seed=n)
+  a_lane = torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1))).cuda()
+  b_lane = torch.as_tensor(np.ascontiguousarray(b.T)).cuda()
+  before = tcholesky.launch_count
+  x = tcholesky.chol_solve_lanes(a_lane, b_lane)
+  assert tcholesky.launch_count == before + 1
+  want = tcholesky.chol_solve_lanes_plain(a_lane, b_lane)
+  torch.testing.assert_close(x, want, atol=TOL, rtol=TOL)

@@ -364,9 +364,17 @@ def test_cuda_source_humanoid_cost_sums_match_plain(name, tmp_path):
     torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
 
 
-def _run_riccati_host(kern, prob, reg, tmp_path):
-  lib = _host_build(dict(kern.build_defines(), RB_BLOCK=1, RB_SMEM=0),
-                    str(tmp_path), source="riccati_backward.cu")
+def _run_riccati_host(kern, prob, reg, tmp_path, threads=False):
+  """The Riccati source built for the host: a block of one thread, the QP
+  warp one lane (every loop the serial loop), or with `threads` a block of
+  16 host threads (EMU_THREADS) in two warps of 8 (EMU_WARP), the QP warp
+  the first: its rows and columns strided over 8 lanes, the second warp
+  waiting at the block barrier meanwhile."""
+  defines = dict(kern.build_defines(), RB_BLOCK=16, RB_QP_LANES=8) \
+      if threads else dict(kern.build_defines(), RB_BLOCK=1, RB_QP_LANES=1)
+  extra = ("-DEMU_THREADS=1", "-DEMU_WARP=8", "-pthread") if threads else ()
+  lib = _host_build(defines, str(tmp_path), source="riccati_backward.cu",
+                    extra_flags=extra)
   lib.riccati_workspace_floats.restype = ctypes.c_int
   assert lib.riccati_workspace_floats() == kern.workspace_floats
   t, nu = prob[3].shape
@@ -374,12 +382,18 @@ def _run_riccati_host(kern, prob, reg, tmp_path):
   ks = torch.zeros((t - 1, nu), dtype=torch.float64)
   kmats = torch.zeros((t - 1, nu, ndx), dtype=torch.float64)
   out = torch.zeros(3, dtype=torch.float64)
-  scratch = torch.zeros(kern.workspace_floats, dtype=torch.float64)
   ptr = lambda x: ctypes.c_void_p(x.data_ptr())
   ins = [x.contiguous() for x in prob] + [reg.reshape(1)]
   assert lib.riccati_backward(*[ptr(x) for x in ins], ptr(ks), ptr(kmats),
-                              ptr(out), ptr(scratch), None) == 0
+                              ptr(out), None, None) == 0
   return ks, kmats, out
+
+
+@pytest.fixture(scope="module")
+def host_dir(tmp_path_factory):
+  """One directory for the module's host builds: cases that differ only in
+  their inputs share a library."""
+  return tmp_path_factory.mktemp("host_builds")
 
 
 @pytest.mark.parametrize("cone", ["pyramidal", "elliptic"])
@@ -445,19 +459,23 @@ def test_cuda_source_hand_task_cost_sums_match_plain(name, tmp_path):
 
 @pytest.mark.parametrize("reg_type", [0, 1, 2, 3])
 @pytest.mark.parametrize("tight_limits", [False, True])
-@pytest.mark.parametrize("ndx,nu,horizon", [(7, 3, 6), (16, 5, 12)])
+@pytest.mark.parametrize("ndx,nu,horizon", [(7, 3, 6), (16, 5, 12),
+                                            (36, 12, 5), (128, 32, 3)])
 def test_riccati_source_matches_backward_pass(ndx, nu, horizon, tight_limits,
-                                              reg_type, tmp_path):
+                                              reg_type, host_dir):
   """The Riccati kernel's source against its plain version, float64, on
   problems whose box-QP decisions have margins; with tight limits controls
-  sit on their bounds and the free-set inverse is exercised."""
+  sit on their bounds and the free-set inverse is exercised. One thread,
+  up to the gate's largest size, whose workspace still fits the shared
+  memory of a block."""
   prob = [torch.as_tensor(x).double() for x in riccati_problem(
       horizon, ndx, nu, seed=100 + reg_type * 2 + tight_limits,
       tight_limits=tight_limits)]
   reg = torch.tensor(1e-2, dtype=torch.float64)
   kern = triccati.build_backward_kernel(ndx, nu, horizon, 6, reg_type)
+  assert kern.layout["shared_bytes"] == 4 * kern.workspace_floats <= 232448
   ks_w, km_w, (dv1, dv2), ok = tilqg.backward_pass(*prob, reg, 6, reg_type)
-  ks, kmats, out = _run_riccati_host(kern, prob, reg, tmp_path)
+  ks, kmats, out = _run_riccati_host(kern, prob, reg, host_dir)
   assert bool(ok) and float(out[2]) == 0.0
   if tight_limits:
     assert (ks_w.abs() == float(np.float32(0.05))).any()
@@ -476,6 +494,43 @@ def test_riccati_source_flags_non_finite_input(tmp_path):
   _, _, out = _run_riccati_host(kern, prob, reg, tmp_path)
   assert float(out[2]) == 1.0
   assert not bool(tilqg.backward_pass(*prob, reg, 6, 0)[3])
+
+
+@pytest.mark.parametrize("reg_type", [0, 1, 2, 3])
+@pytest.mark.parametrize("ndx,nu,horizon,qp_iters,case", [
+    (16, 5, 8, 6, "tight"), (36, 12, 3, 6, "loose"),
+    (128, 32, 2, 2, "loose"), (16, 5, 4, 6, "non_finite")])
+def test_riccati_source_threads_match_backward_pass(ndx, nu, horizon,
+                                                    qp_iters, case, reg_type,
+                                                    host_dir):
+  """The Riccati source with its block as 16 host threads (EMU_THREADS):
+  the QP warp's rows and columns on 8 lanes exchanging by shuffles, the
+  block phases split between the threads, so a missing barrier shows as a
+  mismatch.
+  Float64 against the plain version: limits that clamp (Swimmer's size),
+  loose limits at a quadruped's and the gate's largest size, and a NaN in
+  cx at t = 2 flagged as in the plain version. Host threads exchange
+  slowly (two barriers a shuffle), so the sweeps are short and the gate's
+  largest size runs 2 box-QP iterations (its 32 x 32 inverses)."""
+  prob = [torch.as_tensor(x).double() for x in riccati_problem(
+      horizon, ndx, nu, seed=200 + reg_type, tight_limits=case == "tight")]
+  if case == "non_finite":
+    prob[2][2, 1] = float("nan")
+  reg = torch.tensor(1e-2, dtype=torch.float64)
+  kern = triccati.build_backward_kernel(ndx, nu, horizon, qp_iters, reg_type)
+  ks_w, km_w, (dv1, dv2), ok = tilqg.backward_pass(*prob, reg, qp_iters,
+                                                   reg_type)
+  ks, kmats, out = _run_riccati_host(kern, prob, reg, host_dir, threads=True)
+  if case == "non_finite":
+    assert float(out[2]) == 1.0 and not bool(ok)
+    return
+  assert bool(ok) and float(out[2]) == 0.0
+  if case == "tight":
+    assert (ks_w.abs() == float(np.float32(0.05))).any()
+  torch.testing.assert_close(ks, ks_w, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(kmats, km_w, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(out[0], dv1, atol=TOL, rtol=TOL)
+  torch.testing.assert_close(out[1], dv2, atol=TOL, rtol=TOL)
 
 
 def test_cuda_source_swimmer_cost_sums_with_fluid_matches_plain(tmp_path):
@@ -534,14 +589,17 @@ def test_score_fused_source_matches_reference(task, tmp_path):
   torch.testing.assert_close(out, want, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("n", [4, 7, 8, 18])
-def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
-  """The batched Cholesky kernel's source against its plain version,
-  float64, on SPD systems (8 is Swimmer's nv, 18 the quadruped's)."""
-  lib = _host_build(tcholesky.build_defines(n), str(tmp_path),
-                    source="chol_solve_lanes.cu")
+def _chol_host(n, k, tmp_path, team=1, systems=4):
+  """The batched Cholesky source built for the host at `team` lanes a
+  system and `systems` systems a block, run on K random SPD systems: one
+  thread a block when team is 1 (every lane loop the serial loop), else a
+  block of team * systems host threads (EMU_THREADS). Returns (x, a, b)."""
+  threads = 1 if team == 1 else team * systems
+  extra = () if team == 1 else ("-DEMU_THREADS=1", "-pthread")
+  lib = _host_build(dict(tcholesky.build_defines(n), CS_TEAM=team,
+                         CS_SYS=systems, CS_THREADS=threads), str(tmp_path),
+                    source="chol_solve_lanes.cu", extra_flags=extra)
   rng = np.random.default_rng(n)
-  k = 9
   g = rng.standard_normal((k, n, n))
   a = np.einsum("kij,klj->kil", g, g) + n * np.eye(n)[None]
   a = torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
@@ -550,7 +608,30 @@ def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
   ptr = lambda t: ctypes.c_void_p(t.data_ptr())
   assert lib.chol_solve_lanes(ptr(a), ptr(b), ptr(x), ctypes.c_int(k),
                               None) == 0
+  return x, a, b
+
+
+@pytest.mark.parametrize("n", [4, 7, 8, 18, 1, 32])
+def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
+  """The batched Cholesky kernel's source against its plain version,
+  float64, on SPD systems (8 is Swimmer's nv, 18 the quadruped's), one lane
+  a system, 4 systems a block, K = 9 (the last block part empty)."""
+  k = 9
+  x, a, b = _chol_host(n, k, tmp_path)
   want = tcholesky.chol_solve_lanes_plain(a, b)
   torch.testing.assert_close(x, want, atol=TOL, rtol=TOL)
   ref = np.linalg.solve(np.moveaxis(a.numpy(), -1, 0), b.numpy().T[..., None])
   np.testing.assert_allclose(x.numpy(), ref[..., 0].T, atol=1e-9)
+
+
+@pytest.mark.parametrize("n", [1, 8, 18, 32])
+def test_chol_solve_lanes_source_lanes_as_threads_match_plain(n, tmp_path):
+  """The same source with the lanes of a team as host threads (teams of 8,
+  so n = 18 and 32 hold 3 and 4 rows a lane; 2 systems a block, K = 5 not
+  a multiple of it): every shuffle exchanges between threads, so a missing
+  barrier between the staging and the teams, or between the teams and the
+  store, shows as a mismatch."""
+  x, a, b = _chol_host(n, 5, tmp_path, team=8, systems=2)
+  torch.testing.assert_close(x, tcholesky.chol_solve_lanes_plain(a, b),
+                             atol=TOL, rtol=TOL)
+

@@ -147,3 +147,32 @@ def test_cuda_kernel_matches_plain_on_the_card():
   torch.testing.assert_close(ks, want[0], atol=1e-4, rtol=1e-3)
   torch.testing.assert_close(km, want[1], atol=1e-4, rtol=1e-3)
   assert bool(ok) and bool(want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg_type", [0, 1, 2, 3])
+@pytest.mark.parametrize("ndx,nu,horizon,tight_limits",
+                         [(16, 5, 40, True), (36, 12, 40, False),
+                          (128, 32, 40, False)])
+def test_cuda_kernel_matches_plain_at_each_size_on_the_card(
+    ndx, nu, horizon, tight_limits, reg_type):
+  """Needs the card: the Riccati kernel against `backward_pass` at Swimmer's
+  size with limits that clamp (compared on the steps before the first
+  free-set flip, as chip_smoke.py does), a quadruped's and the gate's
+  largest size, every regularisation type."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  prob = [tt(x).cuda() for x in riccati_problem(
+      horizon, ndx, nu, seed=ndx + reg_type, tight_limits=tight_limits)]
+  kern = t_riccati.build_backward_kernel(ndx, nu, horizon, 6, reg_type)
+  assert kern.layout["workspace_in_shared_memory"]
+  ks, km, dv, ok = kern(*prob, tt(1e-2).cuda())
+  want = kern.plain(*prob, tt(1e-2).cuda())
+  lo, hi = prob[7], prob[8]
+  clamped = lambda k: (k <= lo) | (k >= hi)
+  flips = torch.nonzero((clamped(ks) != clamped(want[0])).any(dim=1))
+  sel = slice(int(flips.max()) + 1 if len(flips) else 0, None)
+  atol = 1e-4 if ndx < 36 else 2e-4
+  torch.testing.assert_close(ks[sel], want[0][sel], atol=atol, rtol=1e-3)
+  torch.testing.assert_close(km[sel], want[1][sel], atol=atol, rtol=1e-3)
+  assert bool(ok) and bool(want[3])
