@@ -21,7 +21,10 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      beside a control (the plain version against itself, its input
      perturbed in the last bits) measured in the same run; times each
      kernel beside its bound, its plain version and, where one PyTorch call
-     computes the same function, that call;
+     computes the same function, that call; the fused scoring kernel also
+     at its paths' shapes and layouts (robust's permuted (K, T, nr) batch,
+     Cartpole's rows) with its device time and the device kernels one
+     scorer call makes (one);
   4. `main_path` — builds the Quadruped Flat task and the predictive
      sampling planner (K=4096 candidates, horizon 36, 3 spline points)
      through the entry points a user calls, runs 1 warm-up + 10 chained
@@ -466,6 +469,26 @@ def device_ms(fn, reps, kernel):
       total += getattr(ev, "cuda_time_total", 0.0) if us is None else us
       count += ev.count
   return total / 1e3 / count if count and total > 0 else None
+
+
+def device_kernels(fn, reps=20):
+  """{name: launches a call} of the device kernels fn() makes, from
+  torch.profiler over `reps` calls after one warm call, read as
+  `device_ms` reads it (a profile of one short call has shown no device
+  time on the card); empty where the profiler shows no device time."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  out = {}
+  for ev in prof.key_averages():
+    us = getattr(ev, "device_time_total", None)
+    if (getattr(ev, "cuda_time_total", 0.0) if us is None else us) > 0:
+      out[ev.key] = ev.count / reps
+  return out
 
 
 def call_ms(fn, reps):
@@ -1714,35 +1737,58 @@ def main():
 
   # (j) fused scoring kernel: random residual rows at each ported task's
   # cost, K=4096 candidates, horizon 36 (the quadruped's is the size for
-  # the time and the bound); no single PyTorch call computes the function
+  # the time and the bound); then at the shapes its paths hand it: robust's
+  # noisy batch (Swimmer, K=16, T=201) as the pipeline rollouts' (K, T, nr)
+  # batch seen through a permuted view, the kernel's strided input, and as
+  # (T, nr, K) rows, and the Cartpole lane planner's (K=10, T=101) rows;
+  # each with its device time and the device kernels one scorer call makes
+  # (1: no copy of the residuals or the norm parameters). No single
+  # PyTorch call computes the function.
   score_rows, err_score = [], 0.0
-  for name, task in score_tasks.items():
+  score_cases = [(name, task, K_MAIN, HORIZON, True)
+                 for name, task in score_tasks.items()]
+  score_cases += [("swimmer", swim, 16, swim_cfg.horizon, False),
+                  ("swimmer", swim, 16, swim_cfg.horizon, True),
+                  ("cartpole", cart, cart_cfg.num_trajectory,
+                   cart_cfg.horizon, True)]
+  for name, task, k, t_hor, rows in score_cases:
     cs = task.cost_spec
-    res = torch.as_tensor(rng.standard_normal(
-        (HORIZON, cs.num_residual, K_MAIN)).astype(np.float32)).to(device)
+    batch = torch.as_tensor(rng.standard_normal(
+        (k, t_hor, cs.num_residual)).astype(np.float32)).to(device)
+    res = batch.permute(1, 2, 0)
+    if rows:
+      res = res.contiguous()
     scorer = scoring.make_scorer(cs, device)
     assert scorer.route == "kernel", scorer.route
     got = scorer(res)
-    want = scoring.score_reference(res.permute(2, 0, 1), cs)
+    want = scoring.score_reference(batch, cs)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     within = bool(((got - want).abs() <= TOL_SCORE +
                    TOL_SCORE * want.abs()).all())
-    row = dict(task=name, T=HORIZON, nr=cs.num_residual, K=K_MAIN,
-               max_abs_err=err, within_tol=within)
-    if name == "quadruped":
-      sb, so = score_work(cs, HORIZON, K_MAIN)
-      score_ms = time_cuda(lambda: scorer(res), 50)
-      score_plain_ms = time_cuda(
-          lambda: scoring.score_reference(res.permute(2, 0, 1), cs), 20)
-      score_bytes_ms = sb / H100_BYTES_PER_S * 1e3
-      score_ops_ms = so / H100_F32_FLOPS * 1e3
-      row.update(kernel_ms=score_ms, plain_ms=score_plain_ms, bytes=sb,
-                 flops=so, bytes_ms=score_bytes_ms, ops_ms=score_ops_ms,
-                 library_ms=None)
+    called = device_kernels(lambda: scorer(res))
+    row = dict(task=name, T=t_hor, nr=cs.num_residual, K=k,
+               residuals="rows (T, nr, K)" if rows
+               else "batch (K, T, nr) permuted",
+               strides=list(res.stride()), layout=scoring.layout(
+                   k, t_hor, scoring.sm_count(torch.cuda.current_device())),
+               max_abs_err=err, within_tol=within, device_kernels=called,
+               device_ms=device_ms(lambda: scorer(res), 50, "score_fused"))
+    if name == "quadruped" or k != K_MAIN:
+      sb, so = score_work(cs, t_hor, k)
+      row.update(kernel_ms=time_cuda(lambda: scorer(res), 50),
+                 plain_ms=time_cuda(
+                     lambda: scoring.score_reference(batch, cs), 20),
+                 bytes=sb, flops=so, bytes_ms=sb / H100_BYTES_PER_S * 1e3,
+                 ops_ms=so / H100_F32_FLOPS * 1e3, library_ms=None)
     score_rows.append(row)
     err_score = max(err_score, err)
-    assert got.shape == (K_MAIN,) and within, row
+    assert got.shape == (k,) and within, row
+    # one device kernel a call (the profiler sees the device: device_ms)
+    assert len(called) == 1 and all(
+        "score_fused" in key and round(n) == 1 for key, n in called.items()), \
+        row
+  score_main = score_rows[0]
   emit("kernels", case="score_fused", cases=score_rows, tol=TOL_SCORE,
        card=card)
 
@@ -2094,20 +2140,26 @@ def main():
     alive = sane.all(dim=0)
     bad_steps = torch.nonzero(~sane.all(dim=1))
     prefix = int(bad_steps.min()) if len(bad_steps) else res.shape[0]
-    cases = [("sane_candidates", res[:, :, alive])] if bool(alive.any()) \
-        else []
+    # the scorer got the pipeline rollouts' (K, T, nr) batch as a permuted
+    # view (row stride 1), which the kernel reads through its strides: each
+    # case is held in that layout and as (T, nr, K) rows
+    assert res.stride(1) == 1 and not res.is_contiguous(), res.stride()
+    cases = [("sane_candidates", res.permute(2, 0, 1)[alive].permute(
+        1, 2, 0))] if bool(alive.any()) else []
     cases.append(("sane_prefix", res[:prefix]))
     score_path = []
-    for what, rows in cases:
-      rows = rows.contiguous()
-      got = scoring._launch(rows, cs)
-      want = scoring.score_reference(rows.permute(2, 0, 1), cs)
-      torch.cuda.synchronize()
-      score_path.append(dict(
-          rows=what, T=rows.shape[0], K=rows.shape[2],
-          max_abs_err=float((got - want).abs().max()),
-          within_tol=bool(((got - want).abs() <= TOL_SCORE +
-                           TOL_SCORE * want.abs()).all())))
+    for what, view in cases:
+      for layout_name, rows in (("batch (K, T, nr) permuted", view),
+                                ("rows (T, nr, K)", view.contiguous())):
+        got = scoring._launch(rows, cs)
+        want = scoring.score_reference(rows.permute(2, 0, 1), cs)
+        torch.cuda.synchronize()
+        score_path.append(dict(
+            rows=what, residuals=layout_name, strides=list(rows.stride()),
+            T=rows.shape[0], K=rows.shape[2],
+            max_abs_err=float((got - want).abs().max()),
+            within_tol=bool(((got - want).abs() <= TOL_SCORE +
+                             TOL_SCORE * want.abs()).all())))
     chol_path = []
     for a, b in captured["chol"]:
       # the systems of candidates whose rollout is still finite
@@ -2286,12 +2338,18 @@ def main():
       "launches_by_path": {k: v["scoring"] for k, v in path_launches.items()
                            if v["scoring"]},
       "max_abs_err": err_score,
-      "ms": score_ms,
-      "plain_ms": score_plain_ms,
-      "bound_ms": max(score_bytes_ms, score_ops_ms),
-      "bound_by": "bytes" if score_bytes_ms >= score_ops_ms
+      "ms": score_main["kernel_ms"],
+      "plain_ms": score_main["plain_ms"],
+      "bound_ms": max(score_main["bytes_ms"], score_main["ops_ms"]),
+      "bound_by": "bytes" if score_main["bytes_ms"] >= score_main["ops_ms"]
                   else "operations",
       "library_ms": None,
+      "device_ms": score_main["device_ms"],
+      "layout": score_main["layout"],
+      "path_shapes": [dict((key, r[key]) for key in (
+          "task", "K", "T", "residuals", "layout", "device_kernels",
+          "device_ms", "kernel_ms", "bytes_ms", "max_abs_err"))
+          for r in score_rows if r["K"] != K_MAIN],
   }, {
       "name": "cholesky.chol_solve_lanes",
       "route": "cuda",
@@ -2307,6 +2365,8 @@ def main():
       "bound_by": "bytes" if chol_main["bytes_ms"] >= chol_main["ops_ms"]
                   else "operations",
       "library_ms": chol_main["library_ms"],
+      "device_ms": chol_main["device_ms"],
+      "layout": chol_main["layout"],
   }] + slice_e_entries + slice_f_entries}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ Replaces the TPU kernel `mujoco_mpc_tpu/ops/cholesky.py:chol_solve_lanes`
 (Pallas): A (n, n, K), b (n, K) -> x (n, K) with A[..., k] x[:, k] =
 b[:, k]; an unrolled Cholesky factorisation whose diagonal is clamped at
 1e-10 before the square root, then two triangular solves. The kernel
-(ops/csrc/chol_solve_lanes.cu) runs a team of lanes per system, one row a
-lane in registers, the pivot column moving by shuffles, with the systems
-staged through shared memory so that every global load and store is
-coalesced (see the note at the top of the source).
+(ops/csrc/chol_solve_lanes.cu) runs one thread per system, the factor in
+registers, neighbouring threads on neighbouring systems so that every
+global load and store is coalesced (see the note at the top of the
+source).
 
 One known difference from the Pallas kernel: each pivot is inverted once
 and multiplied with, where the Pallas kernel divides by it; the plain
@@ -35,6 +35,7 @@ from mujoco_mpc_tpu_torch.ops import _build
 
 EPS = 1e-10
 MAX_N = 32          # the kernel's gate: systems of 1 .. 32 unknowns
+BLOCK = 128         # threads (one a system) a block
 
 # launches of the CUDA kernel made by any wrapper of this module
 # (incremented where a wrapper launches, nowhere else)
@@ -47,36 +48,15 @@ def supports(n: int) -> bool:
   return 1 <= n <= MAX_N
 
 
-def team_size(n: int) -> int:
-  """Lanes a system: one row a lane, the smallest power of two >= n from
-  8 up (scripts/torch_kernel_sweep.py --only tune)."""
-  return 8 if n <= 8 else 16 if n <= 16 else 32
-
-
-def systems_per_block(n: int, team: int) -> int:
-  """Systems a block stages: 32 (a row of 128 B) within 1,024 threads,
-  16 past n = 24, where a lane's row of registers would not fit the 64
-  registers a thread of a 1,024-thread block may have. At n = 18, K = 4,096
-  that is 128 blocks in one wave: no split of 4,096 systems over 132 SMs
-  gives an SM fewer than 32."""
-  return min(32 if n <= 24 else 16, 1024 // team)
-
-
 def build_defines(n: int) -> dict:
-  """Compile-time sizes: n, lanes a system, systems a block."""
-  team = team_size(n)
-  return dict(CS_N=n, CS_TEAM=team, CS_SYS=systems_per_block(n, team))
+  """Compile-time sizes: n and the threads a block."""
+  return dict(CS_N=n, CS_BLOCK=BLOCK)
 
 
 def layout(n: int) -> dict:
-  """Lanes a system, systems a block, threads and dynamic shared memory of
-  a block (the staged triangles and right-hand sides, rows of an odd
-  stride) for the library of n."""
-  d = build_defines(n)
-  team, systems = d["CS_TEAM"], d["CS_SYS"]
-  staged = n * (n + 1) // 2 + n
-  return dict(team=team, systems=systems, threads=team * systems,
-              shared_bytes=4 * staged * (systems | 1))
+  """The launch of the library for n: one thread a system, BLOCK threads
+  (systems) a block, no shared memory."""
+  return dict(threads_per_system=1, threads=BLOCK, shared_bytes=0)
 
 
 def _function(n: int):

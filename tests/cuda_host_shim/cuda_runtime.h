@@ -43,7 +43,8 @@ static EmuIdx blockIdx, blockDim;
 static thread_local EmuIdx threadIdx;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaMemcpyHostToDevice = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaMemcpyHostToDevice = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 #define cudaMemcpyToSymbolAsync(sym, src, n, off, kind, stream) \
   (memcpy((char*)&(sym) + (off), (src), (n)), 0)

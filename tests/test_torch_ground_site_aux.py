@@ -29,7 +29,8 @@ from mujoco_mpc_tpu_torch.spline import Interpolation
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
 from mujoco_mpc_tpu_torch.tasks import tracking as ttracking
 from tests.torch_port_helpers import (DROP, DROP_GEOMS, clearances,
-                                      models_from_xml, to_np, tt)
+                                      models_from_xml, once_a_session, to_np,
+                                      tt)
 
 TOL_QPOS = 2e-4
 TOL_QVEL = 2e-3
@@ -292,42 +293,48 @@ def test_ilqg_lane_route_refuses_a_time_varying_spec_by_name():
     tilqg.ILQGPlanner(pt, lane=True, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def humanoid_track():
-  """Humanoid Track, 3 steps from a standing pose with the feet 0.5-1 mm in
-  the floor (box corners and the shin capsules' ends near it), two
-  injected candidates (P=2); the JAX side chains its own steps eagerly and
-  scores them as the lane planner does (per-term norm sums, weighted, mean
-  over the horizon)."""
+HUMANOID_HORIZON, HUMANOID_P, HUMANOID_K = 3, 2, 2
+HUMANOID_TIME0 = 0.41
+
+
+def _humanoid_start(pt):
+  rng = np.random.default_rng(31)
+  qpos0 = np.asarray(pt.home_qpos, np.float32)
+  qpos0[2] -= clearances(pt.plan_model, qpos0[:, None])[0] + 0.0007
+  qvel0 = (0.1 * rng.standard_normal(27)).astype(np.float32)
+  cand = rng.uniform(-0.4, 0.4, (HUMANOID_K, HUMANOID_P, 21)).astype(
+      np.float32)
+  return qpos0, qvel0, cand
+
+
+def _humanoid_track_jax():
+  """The JAX side of `humanoid_track` as numpy arrays: each step's state
+  and control, the returns, the aux rows."""
   jt = jregistry.get_task("Humanoid Track")
   pt = tregistry.get_task("Humanoid Track", device="cpu")
-  horizon, p, k = 3, 2, 2
+  horizon, p, k = HUMANOID_HORIZON, HUMANOID_P, HUMANOID_K
   jspec = jt.lane_residual_spec(horizon=horizon)
   jk = jstep.build_rollout_kernel(
       jt.plan_model, horizon, p, interpret=True, residual_fn=jspec["fn"],
       residual_dim=jspec["dim"], naux=jspec["naux"])
-  pm = pt.plan_model
-  rng = np.random.default_rng(31)
-  qpos0 = np.asarray(pt.home_qpos, np.float32)
-  qpos0[2] -= clearances(pm, qpos0[:, None])[0] + 0.0007
-  qvel0 = (0.1 * rng.standard_normal(27)).astype(np.float32)
-  time0 = 0.41
-  cand = rng.uniform(-0.4, 0.4, (k, p, 21)).astype(np.float32)
+  qpos0, qvel0, cand = _humanoid_start(pt)
   node_of = [min(int(t * p / (horizon - 1)), p - 1) for t in range(horizon)]
   cs = pt.cost_spec
-  jd0 = jt.make_data().replace(time=jnp.asarray(time0, jnp.float32))
+  jd0 = jt.make_data().replace(time=jnp.asarray(HUMANOID_TIME0, jnp.float32))
   aux = np.concatenate([np.asarray(jspec["make_aux"](jd0,
                                                      jt.residual_params)),
                         to_np(cs.norm_params[:, :2]).reshape(-1)])
   aux = np.tile(aux[:, None], (1, k)).astype(np.float32)
   jq = jnp.asarray(np.tile(qpos0[:, None], (1, k)))
   jv = jnp.asarray(np.tile(qvel0[:, None], (1, k)))
-  states, sums = [], np.zeros((len(cs.dims), k))
+  qs, vs, ctrls, sums = [], [], [], np.zeros((len(cs.dims), k))
   norm_p = to_np(cs.norm_params)
   with jax.disable_jit():
     for t in range(horizon):
       ctrl = jnp.asarray(cand[:, node_of[t]].T)
-      states.append((np.asarray(jq), np.asarray(jv), np.asarray(ctrl)))
+      qs.append(np.asarray(jq))
+      vs.append(np.asarray(jv))
+      ctrls.append(np.asarray(ctrl))
       jq, jv, jres = jk.step_array(jq, jv, ctrl, t, jnp.asarray(aux))
       off = 0
       for n, (ntype, dim) in enumerate(zip(cs.norm_types, cs.dims)):
@@ -335,12 +342,32 @@ def humanoid_track():
             [jres[off + i] for i in range(dim)], ntype,
             jnp.asarray(norm_p[n, 0]), jnp.asarray(norm_p[n, 1])))
         off += dim
-  states.append((np.asarray(jq), np.asarray(jv), None))
+  qs.append(np.asarray(jq))
+  vs.append(np.asarray(jv))
   returns = (to_np(cs.weights)[:, None] * sums).sum(axis=0) / horizon
-  d0 = tmodel.make_data(pm).replace(
-      qpos=tt(qpos0), qvel=tt(qvel0), time=torch.tensor(time0))
-  return dict(pt=pt, states=states, returns=returns, cand=cand, d0=d0,
-              horizon=horizon, p=p, aux=aux)
+  return dict(qpos=np.stack(qs), qvel=np.stack(vs), ctrl=np.stack(ctrls),
+              returns=returns, aux=aux)
+
+
+@pytest.fixture(scope="module")
+def humanoid_track(tmp_path_factory):
+  """Humanoid Track, 3 steps from a standing pose with the feet 0.5-1 mm in
+  the floor (box corners and the shin capsules' ends near it), two
+  injected candidates (P=2); the JAX side chains its own steps eagerly and
+  scores them as the lane planner does (per-term norm sums, weighted, mean
+  over the horizon), once a test session (`once_a_session`: its two tests
+  may land on two workers)."""
+  j = once_a_session(tmp_path_factory, "humanoid_track_jax",
+                     _humanoid_track_jax)
+  pt = tregistry.get_task("Humanoid Track", device="cpu")
+  qpos0, qvel0, cand = _humanoid_start(pt)
+  horizon = HUMANOID_HORIZON
+  states = [(j["qpos"][t], j["qvel"][t], j["ctrl"][t] if t < horizon
+             else None) for t in range(horizon + 1)]
+  d0 = tmodel.make_data(pt.plan_model).replace(
+      qpos=tt(qpos0), qvel=tt(qvel0), time=torch.tensor(HUMANOID_TIME0))
+  return dict(pt=pt, states=states, returns=j["returns"], cand=cand, d0=d0,
+              horizon=horizon, p=HUMANOID_P, aux=j["aux"])
 
 
 def test_humanoid_steps_match_jax(humanoid_track):

@@ -11,8 +11,13 @@ rounding would flip a gate now and then, while in float64 the two agree
 to ~1e-9 whenever the code paths are the same — which is what this test
 is after. The Riccati kernel is a block of cooperating threads; here its
 block has ONE thread, whose strided loops then cover all the work in
-order, and the barriers are no-ops. What only the card can show (nvcc, registers, launches, float32
-agreement) is chip_smoke.py's part.
+order, and the barriers are no-ops; the fused scoring kernel runs one
+slice of the horizon a block there (its slices meet in a block-wide sum).
+Built with EMU_THREADS, a block's threads run as concurrent host threads
+(the shim's barriers and shuffles exchange between them), so a missing
+barrier shows as a mismatch. What only the card can show (nvcc,
+registers, launches, float32 agreement) is chip_smoke.py's part, and the
+`cuda`-marked tests here (`pytest -m cuda`).
 """
 
 import ctypes
@@ -567,44 +572,147 @@ def test_cuda_source_swimmer_cost_sums_with_fluid_matches_plain(tmp_path):
     torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("task", ["Quadruped Flat", "Swimmer", "Cartpole"])
-def test_score_fused_source_matches_reference(task, tmp_path):
-  """The fused scoring kernel's source against the plain cost (mean over
-  the horizon of CostSpec.cost), float64, at each ported task's cost."""
+SCORE_TASKS = ["Quadruped Flat", "Swimmer", "Cartpole"]
+
+
+def _score_host(task, directory, threads):
+  """The fused scoring source built for the host at `task`'s cost, float64:
+  one thread at a time, or with `threads` a block's threads as concurrent
+  host threads (EMU_THREADS) in warps of 8 (EMU_WARP, and SF_WARP for the
+  source's shuffle tree). Returns (lib, cost spec)."""
   cs = tregistry.get_task(task, device="cpu").cost_spec
   cs = cs.replace(weights=cs.weights.double(),
                   norm_params=cs.norm_params.double())
-  lib = _host_build(tscoring.build_defines(cs), str(tmp_path),
-                    source="score_fused.cu")
+  extra = ("-DEMU_THREADS=1", "-DEMU_WARP=8", "-DSF_WARP=8", "-pthread") \
+      if threads else ()
+  lib = _host_build(tscoring.build_defines(cs), str(directory),
+                    source="score_fused.cu", extra_flags=extra)
+  return lib, cs
+
+
+def _score_launch(lib, res, cs, tile, slices):
+  """Launch the host build on residuals (T, nr, K) of any strides, the
+  weights and norm parameters as the wrapper passes them (column 0 of the
+  parameters through their row stride)."""
+  t_hor, _, k = res.shape
+  out = torch.full((k,), float("nan"), dtype=torch.float64)
+  ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+  ll = ctypes.c_longlong
+  err = lib.score_fused(
+      ptr(res), *[ll(x) for x in res.stride()], ptr(cs.weights),
+      ll(cs.weights.stride(0)), ptr(cs.norm_params),
+      ll(cs.norm_params.stride(0)), ptr(out), ctypes.c_int(t_hor),
+      ctypes.c_int(k), ctypes.c_int(tile.bit_length() - 1),
+      ctypes.c_int(slices), None)
+  assert err == 0
+  return out
+
+
+@pytest.mark.parametrize("task", SCORE_TASKS)
+def test_score_fused_source_matches_reference(task, tmp_path):
+  """The fused scoring kernel's source against the plain cost (mean over
+  the horizon of CostSpec.cost), float64, at each ported task's cost: one
+  slice a block (the serial host build runs a block's threads one after
+  the other, which only a block without a cross-slice sum allows), a tile
+  of 8 with K = 5, and a layout the kernel refuses."""
+  lib, cs = _score_host(task, tmp_path, threads=False)
   rng = np.random.default_rng(7)
   t_hor, k = 9, 5
   res = torch.as_tensor(rng.standard_normal((t_hor, cs.num_residual, k)))
-  weights = cs.weights.contiguous()
-  p0 = cs.norm_params[:, 0].contiguous()
-  out = torch.zeros(k, dtype=torch.float64)
-  ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-  assert lib.score_fused(ptr(res), ptr(weights), ptr(p0), ptr(out),
-                         ctypes.c_int(t_hor), ctypes.c_int(k), None) == 0
+  out = _score_launch(lib, res, cs, tile=8, slices=1)
   want = tscoring.score_reference(res.permute(2, 0, 1), cs)
   torch.testing.assert_close(out, want, atol=TOL, rtol=TOL)
+  # 64 slices of 32 candidates pass MAX_THREADS; 3 slices is no power of 2
+  for tile, slices in ((32, 64), (8, 3)):
+    assert lib.score_fused(None, *[ctypes.c_longlong(1)] * 3, None,
+                           ctypes.c_longlong(1), None, ctypes.c_longlong(1),
+                           None, ctypes.c_int(t_hor), ctypes.c_int(k),
+                           ctypes.c_int(tile.bit_length() - 1),
+                           ctypes.c_int(slices), None) == 1
 
 
-def _chol_host(n, k, tmp_path, team=1, systems=4):
-  """The batched Cholesky source built for the host at `team` lanes a
-  system and `systems` systems a block, run on K random SPD systems: one
-  thread a block when team is 1 (every lane loop the serial loop), else a
-  block of team * systems host threads (EMU_THREADS). Returns (x, a, b)."""
-  threads = 1 if team == 1 else team * systems
-  extra = () if team == 1 else ("-DEMU_THREADS=1", "-pthread")
-  lib = _host_build(dict(tcholesky.build_defines(n), CS_TEAM=team,
-                         CS_SYS=systems, CS_THREADS=threads), str(tmp_path),
-                    source="chol_solve_lanes.cu", extra_flags=extra)
+@pytest.mark.parametrize("lane_layout", [True, False],
+                         ids=["rows_T_nr_K", "batch_K_T_nr_permuted"])
+@pytest.mark.parametrize("task", SCORE_TASKS)
+def test_score_fused_source_slices_as_threads_match_reference(
+    task, lane_layout, host_dir):
+  """The same source at the launch rule's layout for K = 11, T = 13 on a
+  card of 8 SMs (a tile of 2, 16 slices: 32 host threads a block,
+  EMU_THREADS, in 4 warps of 8; T not a multiple of the slices, K not of
+  the tile), so the slices' partial sums meet across threads, by shuffles
+  within a warp and through shared memory across the 4 warps, and a
+  missing barrier shows as a mismatch; then the same layout at T = 37,
+  two or three steps a slice. On the lane planner's (T, nr, K) rows, and
+  on the robust path's (K, T, nr) batch read through a permuted view's
+  strides. The norm parameters are a column of a wider tensor, as the
+  wrapper passes them."""
+  lib, cs = _score_host(task, host_dir, threads=True)
+  rng = np.random.default_rng(11)
+  k = 11
+  tile, slices = tscoring.layout(k, 13, 8)
+  assert (tile, slices) == (2, 16) and k % tile
+  wide = torch.as_tensor(rng.uniform(0.05, 0.5, (cs.num_term, 5)))
+  wide[:, :3] = cs.norm_params
+  cs = cs.replace(norm_params=wide[:, :3])
+  assert cs.norm_params.stride(0) == 5
+  for t_hor in (13, 37):
+    batch = torch.as_tensor(rng.standard_normal((k, t_hor,
+                                                 cs.num_residual)))
+    res = batch.permute(1, 2, 0)
+    if lane_layout:
+      res = res.contiguous()
+      assert res.stride(2) == 1
+    else:
+      assert res.stride(1) == 1 and not res.is_contiguous()
+    out = _score_launch(lib, res, cs, tile, slices)
+    want = tscoring.score_reference(batch, cs)
+    torch.testing.assert_close(out, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task,k,t_hor,lane_layout", [
+    ("Quadruped Flat", 4096, 36, True), ("Swimmer", 16, 201, False),
+    ("Swimmer", 16, 201, True), ("Cartpole", 10, 101, True)])
+def test_score_fused_kernel_matches_plain_on_the_card(task, k, t_hor,
+                                                      lane_layout):
+  """Needs the card: the fused scoring kernel against its plain version at
+  the three shapes its callers hand it (the quadruped's cost at K = 4096,
+  T = 36; robust's noisy batch on Swimmer, K = 16, T = 201, as the
+  pipeline rollouts' permuted (K, T, nr) view and as rows; the Cartpole
+  lane planner's K = 10, T = 101), 2e-4 absolute and relative (the JAX
+  suite's bar), one launch a call (the full comparison is chip_smoke.py;
+  run this with `pytest -m cuda`)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  cs = tregistry.get_task(task, device="cuda").cost_spec
+  rng = np.random.default_rng(k + t_hor)
+  batch = torch.as_tensor(rng.standard_normal(
+      (k, t_hor, cs.num_residual)).astype(np.float32)).cuda()
+  res = batch.permute(1, 2, 0)
+  if lane_layout:
+    res = res.contiguous()
+  before = tscoring.launch_count
+  got = tscoring.make_scorer(cs, "cuda")(res)
+  assert tscoring.launch_count == before + 1
+  want = tscoring.score_reference(batch, cs)
+  torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def _chol_host(n, k, tmp_path, threads=False, block=4):
+  """The batched Cholesky source built for the host at `block` threads (one
+  a system) a block, run on K random SPD systems: the block's threads one
+  after the other, or with `threads` as concurrent host threads
+  (EMU_THREADS). Returns (x, a, b)."""
+  extra = ("-DEMU_THREADS=1", "-pthread") if threads else ()
+  lib = _host_build(dict(tcholesky.build_defines(n), CS_BLOCK=block),
+                    str(tmp_path), source="chol_solve_lanes.cu",
+                    extra_flags=extra)
   rng = np.random.default_rng(n)
   g = rng.standard_normal((k, n, n))
   a = np.einsum("kij,klj->kil", g, g) + n * np.eye(n)[None]
   a = torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
   b = torch.as_tensor(rng.standard_normal((n, k)))
-  x = torch.zeros_like(b)
+  x = torch.full_like(b, float("nan"))
   ptr = lambda t: ctypes.c_void_p(t.data_ptr())
   assert lib.chol_solve_lanes(ptr(a), ptr(b), ptr(x), ctypes.c_int(k),
                               None) == 0
@@ -614,8 +722,8 @@ def _chol_host(n, k, tmp_path, team=1, systems=4):
 @pytest.mark.parametrize("n", [4, 7, 8, 18, 1, 32])
 def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
   """The batched Cholesky kernel's source against its plain version,
-  float64, on SPD systems (8 is Swimmer's nv, 18 the quadruped's), one lane
-  a system, 4 systems a block, K = 9 (the last block part empty)."""
+  float64, on SPD systems (8 is Swimmer's nv, 18 the quadruped's), one
+  thread a system, 4 systems a block, K = 9 (the last block part empty)."""
   k = 9
   x, a, b = _chol_host(n, k, tmp_path)
   want = tcholesky.chol_solve_lanes_plain(a, b)
@@ -626,12 +734,11 @@ def test_chol_solve_lanes_source_matches_plain(n, tmp_path):
 
 @pytest.mark.parametrize("n", [1, 8, 18, 32])
 def test_chol_solve_lanes_source_lanes_as_threads_match_plain(n, tmp_path):
-  """The same source with the lanes of a team as host threads (teams of 8,
-  so n = 18 and 32 hold 3 and 4 rows a lane; 2 systems a block, K = 5 not
-  a multiple of it): every shuffle exchanges between threads, so a missing
-  barrier between the staging and the teams, or between the teams and the
-  store, shows as a mismatch."""
-  x, a, b = _chol_host(n, 5, tmp_path, team=8, systems=2)
+  """The same source with the lanes of a block as concurrent host threads,
+  one system a lane (8 a block, K = 13 not a multiple of it: the last
+  block's lanes past K return before touching memory): every system's
+  index, bounds check and coalesced row addressing per thread; n = 32
+  takes the rolled factorisation (past lane_math.cuh kCholUnrollMax)."""
+  x, a, b = _chol_host(n, 13, tmp_path, threads=True, block=8)
   torch.testing.assert_close(x, tcholesky.chol_solve_lanes_plain(a, b),
                              atol=TOL, rtol=TOL)
-

@@ -29,7 +29,7 @@ from mujoco_mpc_tpu.tasks import registry as jregistry
 from mujoco_mpc_tpu_torch.ops import step_lane as tstep
 from mujoco_mpc_tpu_torch.physics.model import GEOM_SPHERE
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
-from tests.torch_port_helpers import to_np, tt
+from tests.torch_port_helpers import once_a_session, to_np, tt
 
 K, P, H = 64, 3, 36
 NQ, NV, NU = 19, 18, 12
@@ -45,8 +45,20 @@ def _node(t):
   return min(int(t * P / max(H - 1, 1)), P - 1)
 
 
-@pytest.fixture(scope="module")
-def chains():
+def _port_kernel(pt):
+  pspec = pt.lane_residual_spec()
+  pkern = tstep.build_rollout_kernel(
+      pt.plan_model, H, P, contact_types=(GEOM_SPHERE,),
+      contact_geoms=pt.plan_contact_geoms, residual=pspec,
+      naux=pspec["naux"], record_states=True)
+  paux = pspec["make_aux"](pt.make_data(), pt.residual_params)[:, None].repeat(
+      1, K)
+  return pkern, paux
+
+
+def _compute_chains():
+  """The JAX chain and the port's rollout of the same candidates, as numpy
+  arrays."""
   jt = jregistry.get_task("Quadruped Flat")
   pt = tregistry.get_task("Quadruped Flat", device="cpu")
   rng = np.random.default_rng(0)
@@ -73,18 +85,25 @@ def chains():
       jq, jv, _ = jkern.step_array(jq, jv, ctrl, t, jaux)
       jax_states.append(np.concatenate([np.asarray(jq), np.asarray(jv)]))
 
-  pspec = pt.lane_residual_spec()
-  pkern = tstep.build_rollout_kernel(
-      pt.plan_model, H, P, contact_types=(GEOM_SPHERE,),
-      contact_geoms=pt.plan_contact_geoms, residual=pspec,
-      naux=pspec["naux"], record_states=True)
+  pkern, paux = _port_kernel(pt)
   pd0 = pt.make_data()
-  paux = pspec["make_aux"](pd0, pt.residual_params)[:, None].repeat(1, K)
   rec = pkern(pd0.qpos[:, None].repeat(1, K), pd0.qvel[:, None].repeat(1, K),
               tt(values), paux)
   return dict(jax_states=np.stack(jax_states),       # (H+1, nq+nv, K)
               port_states=to_np(rec[:, :NQ + NV]),   # (H, nq+nv, K)
-              values=values, pkern=pkern, paux=paux)
+              values=values)
+
+
+@pytest.fixture(scope="module")
+def chains(tmp_path_factory):
+  """The chains once a test session (~6 minutes of eager JAX steps), shared
+  by the three tests however they are spread over workers; the port's
+  kernel object is built in each process."""
+  data = once_a_session(tmp_path_factory, "long_horizon_chains",
+                        _compute_chains)
+  pkern, paux = _port_kernel(tregistry.get_task("Quadruped Flat",
+                                                device="cpu"))
+  return dict(data, pkern=pkern, paux=paux)
 
 
 def test_teacher_forced_steps_match_jax_over_the_full_horizon(chains):

@@ -11,6 +11,8 @@ handed). Tolerances: the JAX suite's kernel-vs-pipeline bars — 2e-4 on
 states, 5e-4 on residual rows, 1e-4 relative on returns and costs.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ from mujoco_mpc_tpu_torch import rollout as trollout
 from mujoco_mpc_tpu_torch import spline as tspline
 from mujoco_mpc_tpu_torch.ops import cholesky as tcholesky
 from mujoco_mpc_tpu_torch.ops import scoring as tscoring
-from tests.torch_port_helpers import to_np, tt
+from tests.torch_port_helpers import once_a_session, to_np, tt
 
 H, K, P = 8, 3, 4
 DT = 0.03
@@ -32,25 +34,23 @@ XFRC_STD, XFRC_RATE = 0.2, 0.1
 TOL_STATES, TOL_ROWS, TOL_RETURN_REL = 2e-4, 5e-4, 1e-4
 
 
-def _start(jt, pt, rng):
-  nq, nv = pt.plan_model.nq, pt.plan_model.nv
-  d0 = pt.make_data()
-  qpos = to_np(d0.qpos) + 0.2 * rng.standard_normal(nq).astype(np.float32)
-  qvel = 0.3 * rng.standard_normal(nv).astype(np.float32)
-  jd0 = jt.make_data().replace(qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel),
-                               time=jnp.asarray(0.25, jnp.float32))
-  pd0 = d0.replace(qpos=tt(qpos), qvel=tt(qvel), time=torch.tensor(0.25))
-  return jd0, pd0
+TRAJECTORY = ("states", "actions", "times", "residuals", "costs",
+              "total_return", "failure")
 
 
-@pytest.fixture(scope="module", params=["Swimmer", "Cartpole"])
-def case(request):
-  name = request.param
+def _jax_case(name):
+  """The JAX side of `case` as numpy arrays: the start state, the
+  candidates, the clean and noisy trajectories (`clean_<field>`,
+  `noisy_<field>`) and the OU noise the keys gave."""
   jt = jregistry.get_task(name)
-  pt = tregistry_get(name)
   m = jt.plan_model
   rng = np.random.default_rng(len(name))
-  jd0, pd0 = _start(jt, pt, rng)
+  d0 = jt.make_data()
+  qpos = np.asarray(d0.qpos) + 0.2 * rng.standard_normal(m.nq).astype(
+      np.float32)
+  qvel = 0.3 * rng.standard_normal(m.nv).astype(np.float32)
+  jd0 = d0.replace(qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel),
+                   time=jnp.asarray(0.25, jnp.float32))
   lo = np.asarray(m.actuator_ctrlrange[:, 0])
   hi = np.asarray(m.actuator_ctrlrange[:, 1])
   # some nodes beyond the control range: the rollout clips
@@ -76,8 +76,29 @@ def case(request):
     return clean, noisy, noise
 
   clean, noisy, noise = run(jnp.asarray(values), keys)
-  return dict(name=name, pt=pt, pd0=pd0, values=values, clean=clean,
-              noisy=noisy, noise=np.asarray(noise))
+  out = dict(qpos=qpos, qvel=qvel, values=values, noise=np.asarray(noise))
+  for prefix, traj in (("clean", clean), ("noisy", noisy)):
+    out.update({f"{prefix}_{f}": np.asarray(getattr(traj, f))
+                for f in TRAJECTORY})
+  return out
+
+
+@pytest.fixture(scope="module", params=["Swimmer", "Cartpole"])
+def case(request, tmp_path_factory):
+  """One task's JAX rollouts, once a test session (`once_a_session`: the
+  file's ten tests spread over the workers), and the port's task and start
+  state."""
+  name = request.param
+  j = once_a_session(tmp_path_factory, f"rollout_case_{name}",
+                     lambda: _jax_case(name))
+  pt = tregistry_get(name)
+  pd0 = pt.make_data().replace(qpos=tt(j["qpos"]), qvel=tt(j["qvel"]),
+                               time=torch.tensor(0.25))
+  traj = {prefix: types.SimpleNamespace(
+      **{f: j[f"{prefix}_{f}"] for f in TRAJECTORY})
+      for prefix in ("clean", "noisy")}
+  return dict(name=name, pt=pt, pd0=pd0, values=j["values"],
+              clean=traj["clean"], noisy=traj["noisy"], noise=j["noise"])
 
 
 def tregistry_get(name):

@@ -5,6 +5,9 @@ counterpart in the port (on the CPU, i.e. the plain versions of the
 kernels); results come back as numpy arrays.
 """
 
+import os
+
+import filelock
 import numpy as np
 import torch
 
@@ -103,6 +106,29 @@ DROP_GEOMS = {
     "box": '<geom type="box" size="0.08 0.05 0.03" euler="10 20 30" '
            'pos="0.01 0 0" mass="0.7"/>',
 }
+
+
+def once_a_session(tmp_path_factory, name, compute):
+  """compute() -> dict of numpy arrays, computed once a test session.
+
+  Under pytest-xdist each worker builds a module fixture for itself, so a
+  fixture shared by tests that land on several workers is computed once a
+  worker. Here the first worker to ask computes it, under a file lock in
+  the session's base temporary directory (shared by its workers), and
+  saves it there; the others wait on the lock and load the file. Without
+  xdist it is computed in the process."""
+  if os.environ.get("PYTEST_XDIST_WORKER") is None:
+    return compute()
+  path = tmp_path_factory.getbasetemp().parent / f"{name}.npz"
+  with filelock.FileLock(f"{path}.lock"):
+    if not path.is_file():
+      data = compute()
+      tmp = path.parent / f"{name}.{os.getpid()}.tmp.npz"
+      np.savez(tmp, **data)
+      os.replace(tmp, path)
+      return data
+  with np.load(path) as f:
+    return {k: f[k] for k in f.files}
 
 
 def to_np(x) -> np.ndarray:
