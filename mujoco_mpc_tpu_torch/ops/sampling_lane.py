@@ -218,11 +218,17 @@ class LaneSamplingPlanner:
     self.routes = dict(self._optimize.returns_fn.routes)
     self.policy = sampling.initial_policy(self.m, self.config, device)
     self.last_info = None
+    if device.type == "cuda":
+      # load the kernel and pack its constant tables now, not inside the
+      # first iteration (an agent rebuilds its planner on reset)
+      self._optimize.returns_fn.kernel.library()
 
-  def optimize(self, gen, d0):
+  def optimize(self, gen, d0, noise=None, u=None):
+    """One iteration; `noise` / `u` are optional pre-drawn numbers for
+    `sampling.add_noise`."""
     self.policy, info = self._optimize(gen, d0, self.policy,
                                        self.task.residual_params,
-                                       self.task.cost_spec)
+                                       self.task.cost_spec, noise=noise, u=u)
     self.last_info = info
     return info
 

@@ -47,7 +47,7 @@ class Trajectory:
 
 # the TRUE dynamic state of a rollout: everything else in Data is derived
 # and recomputed every step
-_CARRY_FIELDS = ("qpos", "qvel", "act", "ctrl", "time", "mocap_pos",
+CARRY_FIELDS = ("qpos", "qvel", "act", "ctrl", "time", "mocap_pos",
                  "mocap_quat", "userdata", "qfrc_applied", "xfrc_applied")
 
 
@@ -57,7 +57,7 @@ def pack_state(d: Data) -> torch.Tensor:
 
 
 def slim_carry(d: Data) -> dict:
-  return {f: getattr(d, f) for f in _CARRY_FIELDS}
+  return {f: getattr(d, f) for f in CARRY_FIELDS}
 
 
 def from_carry(carry: dict) -> Data:

@@ -7,7 +7,9 @@ it is built from a record (convert.task_record) that was exported once
 from the compiled task and is stored under assets/, so running a task
 needs no `mujoco`. A task adds what its ported paths need: the lane
 residual spec of the rollout kernel, the pipeline `residual(m, d, params)`
-of the derivative planners, a host-side `transition`.
+of the derivative planners and of the agent loop, a host-side
+`transition(d, rng)`. The base class carries what the agent's name-based
+setters read: modes, selection options and the residual parameter names.
 """
 
 from __future__ import annotations
@@ -61,8 +63,7 @@ class Task:
       self.plan_model = self.plan_model.replace(
           opt=self.plan_model.opt.replace(timestep=torch.tensor(
               agent_dt, dtype=torch.float32, device=device)))
-    self.cost_spec = convert.cost_spec_from_numpy(record["cost_spec"],
-                                                  device)
+    self.cost_spec = self.default_cost_spec()
     self.residual_params = torch.as_tensor(
         np.array(record["residual_params"], np.float32)).to(device)
     self.mode = 0
@@ -71,18 +72,55 @@ class Task:
   def from_record(cls, record: dict, device="cuda") -> "Task":
     return cls(device=device, record=record)
 
-  @property
-  def modes(self) -> list:
-    data = self.record["texts"].get("task_transition")
+  # -- modes and selections (the `task_transition` and `residual_list_*`
+  # custom texts of the task's MJCF) ----------------------------------------
+
+  def _text_list(self, name: str) -> list:
+    data = self.record["texts"].get(name)
     if data:
       return [s for s in data.replace("\x00", "|").split("|") if s]
-    return ["default"]
+    return []
+
+  @property
+  def modes(self) -> list:
+    return self._text_list("task_transition") or ["default"]
+
+  @property
+  def mode_name(self) -> str:
+    modes = self.modes
+    return modes[self.mode] if self.mode < len(modes) else modes[0]
+
+  def set_mode_by_name(self, name: str):
+    self.mode = self.modes.index(name)
+
+  def selection_options(self, name: str) -> list:
+    """Options of the residual_select_<name> parameter."""
+    return self._text_list(f"residual_list_{name}")
+
+  def set_selection(self, name: str, index: int):
+    """Store option `index` in the residual_select_<name> parameter."""
+    full = f"residual_select_{name}"
+    if full not in self.residual_names:
+      raise KeyError(name)
+    params = self.residual_params.clone()
+    params[self.residual_names.index(full)] = float(index)
+    self.residual_params = params
 
   @property
   def residual_names(self) -> list:
     """Names of the `residual_*` numerics in MjModel order: entry i names
     residual_params[i]."""
     return list(self.record["residual_names"])
+
+  def default_cost_spec(self):
+    """The cost spec as the task's record holds it (the weights the MJCF
+    sets), parsed afresh."""
+    return convert.cost_spec_from_numpy(self.record["cost_spec"], self.device)
+
+  def transition(self, d: model_lib.Data, rng) -> model_lib.Data:
+    """Host-side per-control-step mode machine; `rng` is the caller's numpy
+    generator for any random draw. Default: none."""
+    return d
 
   def config(self, name: str, default):
     """First value of the custom numeric `name`, or `default`."""

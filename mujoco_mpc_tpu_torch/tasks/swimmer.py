@@ -44,12 +44,16 @@ class Swimmer(base.Task):
     return dict(dim=nu + 2, naux=2, fn=fn, make_aux=make_aux,
                 header="residual_swimmer.cuh", consts=consts)
 
-  def transition(self, d, rng: np.random.Generator):
+  def transition(self, d, rng):
     """Teleport the target when the nose reaches it (host-side; the new
-    target comes from the caller's generator)."""
-    nose = d.xpos[NOSE_BODY, :2].cpu().numpy() if d.xpos is not None \
-        else np.zeros(2)
-    target = d.mocap_pos[0, :2].cpu().numpy()
+    target comes from the caller's numpy generator, `rng.uniform`). Nose
+    and target come to the host in one read."""
+    target = d.mocap_pos[0, :2]
+    if d.xpos is None:
+      nose, target = np.zeros(2), target.cpu().numpy()
+    else:
+      both = torch.cat([d.xpos[NOSE_BODY, :2], target]).cpu().numpy()
+      nose, target = both[:2], both[2:]
     if np.linalg.norm(target - nose) < 0.04:
       mocap = d.mocap_pos.clone()
       mocap[0, :2] = torch.as_tensor(

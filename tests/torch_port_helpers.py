@@ -280,3 +280,20 @@ def pair_states(kind: str, nv: int, rng, depths=(-0.003, 0.0005, 0.001,
   qvel = 0.05 * rng.standard_normal((nv, k))
   qvel[3] -= 0.2                 # the free body moving down into the arm
   return qpos, qvel
+
+
+def jax_state(jd) -> dict:
+  """The state fields of a JAX Data (qpos, qvel, mocap_pos, time) as numpy
+  arrays."""
+  return {f: np.asarray(getattr(jd, f)) for f in
+          ("qpos", "qvel", "mocap_pos", "time")}
+
+
+def port_data_with_jax_state(pd, state):
+  """The port's Data `pd` with the state fields of a JAX Data put in
+  (float32 on pd's device): `state` is a JAX Data or a mapping of its
+  qpos, qvel, mocap_pos and time (`jax_state`)."""
+  if not isinstance(state, dict):
+    state = jax_state(state)
+  return pd.replace(**{f: tt(state[f]).to(pd.qpos.device) for f in
+                       ("qpos", "qvel", "mocap_pos", "time")})
