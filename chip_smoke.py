@@ -93,10 +93,12 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      then `rubik_path` (BASELINE config 5: Rubik, K=512, H=16, P=3, 10
      chained iterations), `cube_solving_path` and `hand_reorient_path` (the
      same K and H) on the lane planner;
-  9. after phase 10, prints one JSON line describing every kernel (the
-     rollout kernel by build: main path, feedback, humanoid track, humanoid
-     stand, site, rubik, cube solving, hand reorient, the agent paths'
-     cartpole states, swimmer cost sums and swimmer feedback at H=201, and
+  9. after phases 10 and 11, prints one JSON line describing every kernel
+     (the rollout kernel by build: main path, feedback, humanoid track,
+     humanoid stand, site, rubik, cube solving, hand reorient, the agent
+     paths' cartpole states, swimmer cost sums and swimmer feedback at
+     H=201, walker feedback and walker cost sums; B2, B3 and B4 also at
+     phase 11's new sizes; and
      the checks-only builds rubik box-box and rubik elliptic with
      `on_path: false`; each kernel's launches by path; each rollout build
      with its `layout`: lanes a team, teams a block, shared memory, where
@@ -121,7 +123,27 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      holds are held to their plain versions on each path's own last
      launch (`agent_cartpole_states`, `agent_swimmer_cost_sums`,
      `agent_swimmer_feedback`). `python3 chip_smoke.py --only agent_paths`
-     runs this phase alone.
+     runs this phase alone;
+ 11. `contact_gradient_paths` — pipeline contacts and the Gradient planner:
+     `gradient_path` (`make_planner(Swimmer, "Gradient")` at its own
+     configuration, H=201: the forward step, the reverse step's
+     vector-Jacobian product and the line search's batched step each
+     replayed from a CUDA graph; 1 warm-up and 3 chained iterations, stage
+     times, host syncs, B3 and B4 launches (B4's counted on the device
+     at each replay); B3 and B4 held against their plain versions on the
+     line search's own inputs; the graph route against the same step
+     functions run uncaptured at H=21), `walker_ilqg_path` (BASELINE
+     config 2b: iLQG on Walker at H=32, derivatives through the contact
+     rows, 1 warm-up and 5 chained iterations; B2 on every sweep of one
+     more iteration and B1 feedback on its last launch held against their
+     plain versions, B1 feedback once more from a pressed state; B2 timed
+     at Walker's size) and `agent_walker` (`testspeed.run("Walker",
+     total_time=2)`: the lane sampler at K=32, H=81, the contact step graph
+     against the eager step, the torso above the floor; the cost-sums
+     build held on the path's last launch, per candidate beside the nudged
+     plain witness, and its states build step by step over the horizon).
+     `python3 chip_smoke.py --only contact_gradient_paths` runs this phase
+     alone.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
 JAX or the JAX package.
@@ -260,6 +282,31 @@ AGENT_COST_DROP = 0.5
 # the CUDA graph of one physics step against the eager step, one step from
 # the same state
 TOL_STEP_GRAPH = 1e-6
+# phase 11: the Gradient planner on Swimmer at its own configuration (H=201,
+# 10 spline points, 8 line-search candidates), 1 warm-up and 3 chained
+# iterations; its graph route against its eager route at H=21 (the same
+# kernels in the same order, so only the library routines' choices could
+# part them: relative to the eager value); iLQG on Walker at BASELINE
+# config 2b (scripts/bench_configs.py:243, H=32), 1 warm-up and 5 chained
+# iterations; Walker under the agent (testspeed, 2 simulated seconds, the
+# lane sampler at its own configuration K=32, H=81, 3 spline points)
+GRADIENT_ITERATIONS, GRADIENT_CHECK_HORIZON = 3, 21
+TOL_GRAPH_VS_EAGER = 1e-5
+HORIZON_WALKER_ILQG, WALKER_ILQG_ITERATIONS = 32, 5
+K_WALKER_AGENT, HORIZON_WALKER_AGENT, AGENT_WALKER_TIME = 32, 81, 2.0
+# A contact-rich launch's whole-horizon outcome (Walker's cost sums standing
+# under the agent, its feedback rollouts from a pressed state) is held to
+# the plain version per candidate. Where the kernel parts from it by more
+# than the bar, the plain version from the same start nudged by
+# CONTROL_PERTURBATION (relative; WITNESS_NUDGES draws) must part from
+# itself on that candidate by at least TOL_WITNESS_RATIO of the kernel's
+# gap: the candidate's outcome is then not fixed to the bar by its float32
+# inputs (a contact gate flipped by a last-bit difference). Candidates the
+# witness does not explain fail the check.
+WITNESS_NUDGES = 4
+TOL_WITNESS_RATIO = 0.1
+# the torso (a capsule of radius 0.07 m) stays above this height (m)
+TORSO_FLOOR = 0.03
 
 
 def emit(phase, **kw):
@@ -514,6 +561,39 @@ def device_ms(fn, reps, kernel):
   return total / 1e3 / count if count and total > 0 else None
 
 
+def graph_launch_ms(fn, launches=50, reps=20):
+  """Device milliseconds a launch of fn() (one kernel launch a call) takes
+  back to back: `launches` calls captured as one CUDA graph, replayed
+  `reps` times between CUDA events, so no host launch time is inside (the
+  gaps between the graph's kernel nodes are). The wrappers' launch counts
+  are left alone: these launches only time the kernel. Taken where
+  `device_ms` can read nothing (the profiler has shown no device time late
+  in the whole script's run)."""
+  from mujoco_mpc_tpu_torch.ops import launches as launch_counts
+
+  count = launch_counts.count
+  launch_counts.count = lambda replay_counts, device: 0
+  try:
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+      for _ in range(launches):
+        fn()
+  finally:
+    launch_counts.count = count
+  graph.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / (reps * launches)
+
+
 def device_kernels(fn, reps=20):
   """{name: launches a call} of the device kernels fn() makes, from
   torch.profiler over `reps` calls after one warm call, read as
@@ -568,15 +648,14 @@ def run_path(planner, d0, iterations, counters, gen=None,
   syncs)."""
   planner.optimize(gen, d0)
   torch.cuda.synchronize()
-  for mod in counters.values():
-    mod.launch_count = 0
+  zero_counts(counters)
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
   infos = [planner.optimize(gen, d0) for _ in range(iterations)]
   end.record()
   torch.cuda.synchronize()
-  launches = {name: mod.launch_count for name, mod in counters.items()}
+  launches = read_counts(counters)
   ms = start.elapsed_time(end) / iterations
   with around_last():
     _, syncs = count_syncs(lambda: planner.optimize(gen, d0))
@@ -608,7 +687,7 @@ def lane_aux(task, spec, d0, k, cost_terms):
 
 
 def step_by_step(kern, rec, values, aux, p, nq, nv, gen, window=None,
-                 first=None):
+                 first=None, steps_as_lanes=False):
   """Each step of a recorded rollout but the last (whose outcome the record
   does not hold; only the steps of `window` = range(start, stop), if given)
   repeated by the plain version from the kernel's own pre-step state, and
@@ -617,27 +696,58 @@ def step_by_step(kern, rec, values, aux, p, nq, nv, gen, window=None,
   TOL_STEP_QVEL (absolute), for the kernel and for the control; pairs of
   rollouts that have blown up are left out. `first`, if given, is the plain
   version's state after step 0 from the same initial state (a plain rollout
-  of the same inputs), taken in place of repeating that step."""
+  of the same inputs), taken in place of repeating that step. Where `rec`
+  holds residual rows, the plain version's rows at the kernel's pre-step
+  states are held to them too (`max_err_rows_rel`: abs/rel, TOL_ROWS's
+  form). With `steps_as_lanes` (a task whose residual reads no step index)
+  the plain version takes all the steps in one call, side by side as
+  lanes, and once more for the control: the same arithmetic lane by lane,
+  without a call's fixed cost a step."""
   horizon, _, k = rec.shape
   nu = values.shape[0] // p
+  ts = list(window or range(horizon - 1))
+
+  def ctrl_at(t):
+    node = min(int(t * p / max(horizon - 1, 1)), p - 1)
+    return values[node * nu:(node + 1) * nu]
+
+  def lanes(parts):
+    return torch.cat(parts, dim=1)
 
   def nudged(x):
     return x * (1.0 + CONTROL_PERTURBATION * torch.randn(
         x.shape, generator=gen, device=x.device))
 
+  if steps_as_lanes:
+    assert first is None
+    wide = (lanes([ctrl_at(t) for t in ts]),
+            0, None if aux is None else aux.repeat(1, len(ts)))
+    qps = lanes([rec[t, :nq] for t in ts])
+    qvs = lanes([rec[t, nq:nq + nv] for t in ts])
+    plain = list(zip(*[o.split(k, dim=1) for o in kern.step_array(
+        qps, qvs, *wide)]))
+    control = list(zip(*[o.split(k, dim=1) for o in kern.step_array(
+        nudged(qps), nudged(qvs), *wide)]))
+
   def within(a, b):
     return ((a[:nq] - b[:nq]).abs().amax(dim=0) <= TOL_STEP_QPOS) & \
         ((a[nq:] - b[nq:]).abs().amax(dim=0) <= TOL_STEP_QVEL)
 
-  ok_k, ok_c, sane, err_q, err_v = [], [], [], [], []
-  for t in window or range(horizon - 1):
-    node = min(int(t * p / max(horizon - 1, 1)), p - 1)
-    ctrl = values[node * nu:(node + 1) * nu]
+  ok_k, ok_c, sane, err_q, err_v, err_rows = [], [], [], [], [], []
+  for i, t in enumerate(ts):
+    ctrl = ctrl_at(t)
     qp, qv = rec[t, :nq], rec[t, nq:nq + nv]
-    want = first if t == 0 and first is not None else \
-        torch.cat(kern.step_array(qp, qv, ctrl, t, aux)[:2])
-    ctl = torch.cat(kern.step_array(nudged(qp), nudged(qv), ctrl, t,
-                                    aux)[:2])
+    if t == 0 and first is not None:
+      want = first
+    else:
+      q_n, v_n, rows = plain[i] if steps_as_lanes else \
+          kern.step_array(qp, qv, ctrl, t, aux)
+      want = torch.cat([q_n, v_n])
+      if rec.shape[1] > nq + nv:
+        err_rows.append(float(((rec[t, nq + nv:] - rows).abs() /
+                               (1.0 + rows.abs())).max()))
+    ctl = torch.cat(control[i][:2] if steps_as_lanes else kern.step_array(
+        nudged(qp), nudged(qv), ctrl, t, aux)[:2])
     after = rec[t + 1, :nq + nv]
     ok_k.append(within(after, want))
     ok_c.append(within(ctl, want))
@@ -652,13 +762,14 @@ def step_by_step(kern, rec, values, aux, p, nq, nv, gen, window=None,
   # the kernel's share within the tolerances is held to the control's,
   # less three standard errors of the control's share (sampling noise)
   slack = 3.0 * float(np.sqrt(max(share_c * (1.0 - share_c), 1e-12) / n))
+  rows = dict(max_err_rows_rel=max(err_rows)) if err_rows else {}
   return dict(pairs=n, left_out_pairs=int((~sane).sum()),
               share_within=share_k, control_share_within=share_c,
               slack=slack, passes=share_k >= share_c - slack,
               median_err_qpos=float(torch.stack(err_q)[sane].median()),
               median_err_qvel=float(torch.stack(err_v)[sane].median()),
               max_err_qpos=float(torch.stack(err_q)[sane].max()),
-              max_err_qvel=float(torch.stack(err_v)[sane].max()))
+              max_err_qvel=float(torch.stack(err_v)[sane].max()), **rows)
 
 
 def active_rows(m, gaps):
@@ -694,14 +805,34 @@ def kernel_bound(kern, args, outs, steps, k):
       flops / H100_F32_FLOPS * 1e3
 
 
+def build_twinned(task, horizon, p, **kw):
+  """`step_lane.build_rollout_kernel` of the task's plan model on the card
+  with, as its `twin`, the same build of the task's CPU copy (that copy's
+  residual spec; the defines asserted equal): a check's plain version runs
+  there, on the host's CPU, where its thousands of small operations a step
+  take less time than as launches on the card."""
+  from mujoco_mpc_tpu_torch.ops import sampling_lane, step_lane
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  kern = step_lane.build_rollout_kernel(
+      task.plan_model, horizon, p,
+      residual=sampling_lane.lane_residual_spec(task, horizon), **kw)
+  cpu = registry.get_task(task.name, device="cpu")
+  kern.twin = step_lane.build_rollout_kernel(
+      cpu.plan_model, horizon, p,
+      residual=sampling_lane.lane_residual_spec(cpu, horizon), **kw)
+  assert kern.twin.build_defines() == kern.build_defines(), task.name
+  return kern
+
+
 def cost_sums_check(kern, task, spec, d0, values, horizon):
   """One cost-sum launch of `kern` from d0's state on every candidate of
   `values`, held against the plain version on the same inputs: the returns
   (weighted term sums over the horizon) within TOL_RETURN_REL but for a
   TOL_RETURN_SHARE of candidates, and the best candidate of each (0 is the
-  nominal); the kernel's time (CUDA events), the plain version's (one call,
-  host clock) and the bound. Returns the row to print, which also keys the
-  build's summary entry."""
+  nominal); the kernel's time (CUDA events), the plain version's (one call
+  on the host's CPU from the build's `twin`, host clock) and the bound.
+  Returns the row to print, which also keys the build's summary entry."""
   k = values.shape[1]
   terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
   args = (d0.qpos[:, None].repeat(1, k).contiguous(),
@@ -709,10 +840,11 @@ def cost_sums_check(kern, task, spec, d0, values, horizon):
           lane_aux(task, spec, d0, k, terms))
   sums, fin = kern(*args)
   torch.cuda.synchronize()
+  args_c = [a.cpu() for a in args]
   t0 = time.perf_counter()
-  sums_p, _ = kern.plain(*args)
-  torch.cuda.synchronize()
+  sums_p, _ = kern.twin.plain(*args_c)
   plain_ms = (time.perf_counter() - t0) * 1e3
+  sums_p = sums_p.to(sums.device)
   w = task.cost_spec.weights[:, None]
   ret = (w * sums).sum(dim=0) / horizon
   ret_p = (w * sums_p).sum(dim=0) / horizon
@@ -832,9 +964,13 @@ def ground_site_aux_builds(device):
       ("quadrotor_states", rotor, r_spec, r_cfg.horizon,
        r_cfg.num_spline_points, True)):
     terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
-    kernels[name] = step_lane.build_rollout_kernel(
-        task.plan_model, hor, p, residual=spec, naux=spec["naux"],
-        record_states=states, cost_terms=None if states else terms)
+    if states:
+      kernels[name] = step_lane.build_rollout_kernel(
+          task.plan_model, hor, p, residual=spec, naux=spec["naux"],
+          record_states=True)
+    else:
+      kernels[name] = build_twinned(task, hor, p, naux=spec["naux"],
+                                    record_states=False, cost_terms=terms)
   return tasks, kernels
 
 
@@ -1018,9 +1154,9 @@ def body_pair_builds(device):
                   body_pair_types=getattr(task, "plan_body_pair_types", None))
     terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
     m = task.plan_model
-    kernels[f"{key}_cost_sums"] = step_lane.build_rollout_kernel(
-        m, HORIZON_BODY, p, residual=spec, naux=spec["naux"],
-        record_states=False, cost_terms=terms, **select)
+    kernels[f"{key}_cost_sums"] = build_twinned(
+        task, HORIZON_BODY, p, naux=spec["naux"], record_states=False,
+        cost_terms=terms, **select)
     variants = [(key, m, select, HORIZON_BODY_CHECK)]
     if key == "rubik":
       knobs = [i for i, n in enumerate(m.names["geom"])
@@ -1271,7 +1407,7 @@ def recording_rollouts(records):
     step_lane.build_rollout_kernel = build
 
 
-def recorded_check(name, recorded, task, card):
+def recorded_check(name, recorded, task, card, witness=False):
   """A path's own last launch of a rollout build, repeated, against the
   plain version on the same inputs: every recorded state (states and
   feedback modes) to the states tolerance, or the returns (cost-sum mode)
@@ -1281,7 +1417,10 @@ def recorded_check(name, recorded, task, card):
   the time there that they take as launches on the card. Returns the row
   for the build's summary entry (time, plain time, bound: one step's
   operations of one candidate times the steps and the candidates; the
-  feedback law's 2 nu ndx a step not counted)."""
+  feedback law's 2 nu ndx a step not counted). With `witness` (a
+  contact-rich states or feedback launch) a candidate whose states part
+  from the plain version's by more than the bar passes where the nudged
+  plain witness explains the gap (`witness_check`)."""
   from mujoco_mpc_tpu_torch.ops import sampling_lane, step_lane
   from mujoco_mpc_tpu_torch.tasks import registry
 
@@ -1325,8 +1464,30 @@ def recorded_check(name, recorded, task, card):
     tol = TOL_STATES_CARTPOLE if task.name == "Cartpole" \
         else TOL_STATES_SWIMMER
     err = float((got - want).abs().max())
-    row.update(max_abs_err_return=err, max_abs_err_states=err, tol=tol)
-    ok = bool(torch.isfinite(got).all()) and err <= tol
+    # Walker falls from 2.6 m at its start (config 2b): its recorded states
+    # reach |x| ~ 4 over the 32 steps, so its bar is abs/rel (TOL_STEP's
+    # form); Cartpole's and Swimmer's stay absolute
+    scale = 1.0 + want.abs() if task.name == "Walker" else 1.0
+    err_scaled = float(((got - want).abs() / scale).max())
+    row.update(max_abs_err_return=err, max_abs_err_states=err,
+               max_err_states_abs_rel=err_scaled, tol=tol,
+               tol_form="abs/rel" if task.name == "Walker" else "abs")
+    ok = bool(torch.isfinite(got).all()) and err_scaled <= tol
+    if witness:
+      # per candidate, over every recorded state
+      want_c = want.cpu()
+
+      def per_candidate(x):
+        return ((x - want_c).abs() / (1.0 + want_c.abs())).amax(dim=(0, 1))
+
+      nudged = nudged_plain(
+          twin, [a.cpu() for a in args],
+          {key: v.cpu() for key, v in kwargs.items()},
+          torch.Generator().manual_seed(SEED + 2))
+      err_w = torch.stack([per_candidate(o[0]) for o in nudged]).amax(dim=0)
+      fields, ok_w = witness_check(per_candidate(got.cpu()), err_w, tol)
+      row.update(per_candidate=fields)
+      ok = bool(torch.isfinite(got).all()) and ok_w
   one = [a[:, :1].cpu() for a in args[:2]]
   aux = args[3][:, :1].cpu() if len(args) > 3 else None
   ctrl = torch.zeros((nu, 1))
@@ -1345,12 +1506,22 @@ def recorded_check(name, recorded, task, card):
 
 
 def zero_counts(counters):
+  """Every kernel wrapper's launch count to 0: the eager launches on the
+  host and the tallies graph replays add on the device."""
+  from mujoco_mpc_tpu_torch.ops import launches
+
   for mod in counters.values():
     mod.launch_count = 0
+    launches.zero(mod.replay_counts)
 
 
 def read_counts(counters):
-  return {name: mod.launch_count for name, mod in counters.items()}
+  """Each kernel's launches since `zero_counts`, eager and replayed from a
+  CUDA graph (read back from the device)."""
+  from mujoco_mpc_tpu_torch.ops import launches
+
+  return {name: mod.launch_count + launches.replays(mod.replay_counts)
+          for name, mod in counters.items()}
 
 
 def agent_syncs(agent, steps_per_plan):
@@ -1646,6 +1817,617 @@ def agent_paths(counters, path_launches, card, device, main_ms=None):
   return entries
 
 
+def nudged_plain(twin, args, kwargs, gen):
+  """The plain version of `twin` on WITNESS_NUDGES copies of a launch's K
+  lanes side by side (CPU tensors), each copy from qpos0 and qvel0 nudged
+  by CONTROL_PERTURBATION (relative): one call over WITNESS_NUDGES x K
+  lanes (a 1-D argument, the feedback mode's table, is shared). Returns its
+  outputs (each with the lanes last) split back into WITNESS_NUDGES tuples
+  of K lanes."""
+  k = args[0].shape[1]
+  lanes = []
+  for i, a in enumerate(args):
+    if a.dim() != 2:              # the feedback mode's per-step table
+      lanes.append(a)
+      continue
+    wide = a.repeat(1, WITNESS_NUDGES)
+    if i < 2:
+      wide = wide * (1.0 + CONTROL_PERTURBATION * torch.randn(
+          wide.shape, generator=gen))
+    lanes.append(wide)
+  out = twin.plain(*lanes, **kwargs)
+  outs = out if isinstance(out, tuple) else (out,)
+  return [tuple(o[..., j * k:(j + 1) * k] for o in outs)
+          for j in range(WITNESS_NUDGES)]
+
+
+def witness_check(err_k, err_w, tol):
+  """Per candidate: the kernel's error from the plain version `err_k` (K,)
+  within `tol`, or explained by the nudged plain version's own spread
+  `err_w` (K,): err_w >= TOL_WITNESS_RATIO err_k. A candidate with a
+  non-finite error is unexplained. Returns (fields to print, passes)."""
+  over = ~(err_k <= tol)
+  explained = err_w >= TOL_WITNESS_RATIO * err_k
+  bad = over & ~explained
+  return dict(candidates_over_tol=over.nonzero().flatten().tolist(),
+              err_over_tol=err_k[over].tolist(),
+              witness_err_over_tol=err_w[over].tolist(),
+              witness_share_over_tol=float((err_w > tol).float().mean()),
+              witness_max_err=float(err_w.max()),
+              unexplained=int(bad.sum()), witness_nudges=WITNESS_NUDGES,
+              tol_witness_ratio=TOL_WITNESS_RATIO), not bool(bad.any())
+
+
+def walker_cost_sums_check(name, recorded, task, card):
+  """A contact-rich cost-sum launch of a path (Walker standing under the
+  agent: 81 steps with the feet on the floor) held against the plain
+  version on the same inputs: its returns per candidate within
+  TOL_RETURN_REL, or the gap explained by the nudged plain witness
+  (`witness_check`). A states build of the same specialisation (the same
+  inputs, every state recorded) is held step by step over the whole
+  horizon against the plain version beside the nudged control, with the
+  plain version's residual rows at the kernel's states to TOL_ROWS, and
+  the cost-sum launch's returns to the returns of the states build's own
+  rows (the reduction, TOL_RETURN_REL). The plain version runs on the
+  host's CPU, from a twin of the build. Returns the row of the build's
+  summary entry."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  kern, (build_a, build_kw), args, _ = recorded
+  defs = kern.build_defines()
+  horizon, p = defs["LR_H"], build_a[2]
+  naux = task.lane_residual_spec()["naux"]
+  m = task.plan_model
+  nq, nv = m.nq, m.nv
+  kw = {k: v for k, v in build_kw.items() if k != "cost_terms"}
+  kw["record_states"] = True
+  states = step_lane.build_rollout_kernel(*build_a, **kw)
+  twin_task = registry.get_task(task.name, device="cpu")
+  twin = step_lane.build_rollout_kernel(
+      twin_task.plan_model, *build_a[1:],
+      **dict(kw, residual=twin_task.lane_residual_spec()))
+  assert twin.build_defines() == states.build_defines()
+  qpos0, qvel0, values, aux = args
+  aux_s = aux[:naux].contiguous()
+  rec = states(qpos0, qvel0, values, aux_s)         # (H, nq + nv + nr, K)
+  sums, _ = kern(*args)
+  torch.cuda.synchronize()
+  w = task.cost_spec.weights[:, None]
+  ret = (w * sums).sum(dim=0) / horizon
+  rows = rec[:, nq + nv:].permute(2, 0, 1)          # (K, H, nr)
+  ret_rows = task.cost_spec.cost(rows).sum(dim=1) / horizon
+  rel = (ret - ret_rows).abs() / torch.clamp(ret_rows.abs(), min=1.0)
+  rec_c, values_c, aux_c = rec.cpu(), values.cpu(), aux_s.cpu()
+  gen_c = torch.Generator().manual_seed(SEED)
+  steps = step_by_step(twin, rec_c, values_c, aux_c, p, nq, nv, gen_c,
+                       steps_as_lanes=True)
+  plain_args = (qpos0.cpu(), qvel0.cpu(), values_c, aux_c)
+
+  def plain_returns(rec_p):
+    return task.cost_spec.cost(rec_p[:, nq + nv:].permute(2, 0, 1).to(
+        ret.device)).sum(dim=1) / horizon
+
+  # the plain version's whole rollout of the same inputs, timed, and the
+  # witness: its rollouts from the nudged start
+  t0 = time.perf_counter()
+  ret_plain = plain_returns(twin.plain(*plain_args))
+  plain_ms = (time.perf_counter() - t0) * 1e3
+
+  def rel_to_plain(r):
+    return (r - ret_plain).abs() / torch.clamp(ret_plain.abs(), min=1.0)
+
+  nudged = nudged_plain(twin, plain_args, {},
+                        torch.Generator().manual_seed(SEED + 1))
+  rel_w = torch.stack([rel_to_plain(plain_returns(o[0]))
+                       for o in nudged]).amax(dim=0)
+  rel_k = rel_to_plain(ret)
+  finite = torch.isfinite(ret) & torch.isfinite(ret_plain)
+  witness, whole_ok = witness_check(rel_k[finite], rel_w[finite],
+                                    TOL_RETURN_REL)
+  nb, nf, bytes_ms, ops_ms = kernel_bound(kern, args, (sums,), horizon,
+                                          qpos0.shape[1])
+  row = dict(K=qpos0.shape[1], H=horizon, mode=kern.mode,
+             kernel_ms=time_cuda(lambda: kern(*args), 10),
+             plain_ms=plain_ms, plain_on="cpu", steps=steps,
+             whole_rollout_vs_plain=dict(
+                 median_rel=float(rel_k.median()), max_rel=float(rel_k.max()),
+                 share_over_tol_return_rel=float(
+                     (rel_k > TOL_RETURN_REL).float().mean()),
+                 nonfinite=int((~finite).sum()), **witness),
+             tol_rows=TOL_ROWS,
+             max_abs_err_return=float((ret - ret_plain).abs().max()),
+             max_abs_err_return_vs_rows=float((ret - ret_rows).abs().max()),
+             max_rel_return_vs_rows=float(rel.max()),
+             tol_return_rel=TOL_RETURN_REL,
+             active_contact_points_t0=int((torch.stack([
+                 g for _, _, g in step_lane.contact_gaps(m, rec[0, :nq])])
+                 < 0).sum()),
+             bytes=nb, flops=nf, bytes_ms=bytes_ms, ops_ms=ops_ms)
+  emit("kernels", case=name, card=card, **row)
+  assert steps["passes"] and steps["median_err_qpos"] <= TOL_STEP_MEDIAN, \
+      row
+  assert steps["max_err_rows_rel"] <= TOL_ROWS, row
+  assert float(rel.max()) <= TOL_RETURN_REL, row
+  assert int((~finite).sum()) <= TOL_NONFINITE_SHARE * row["K"], row
+  assert whole_ok, row
+  return row
+
+
+def walker_builds(device):
+  """Phase 11's task and rollout-kernel builds: Walker in feedback mode at
+  BASELINE config 2b's horizon (the iLQG line searches) and in cost-sum
+  mode at its own sampling configuration (the agent's lane planner), and
+  the Riccati kernel at Walker's size. The planners find them built."""
+  from mujoco_mpc_tpu_torch.ops import riccati_lane, step_lane
+  from mujoco_mpc_tpu_torch.planners import ilqg, sampling
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  walker = registry.get_task("Walker", device=device)
+  spec = walker.lane_residual_spec()
+  m = walker.plan_model
+  cfg = sampling.make_config(walker)
+  assert (cfg.num_trajectory, cfg.horizon, cfg.num_spline_points) == (
+      K_WALKER_AGENT, HORIZON_WALKER_AGENT, 3), cfg
+  kernels = {
+      "walker_feedback": step_lane.build_rollout_kernel(
+          m, HORIZON_WALKER_ILQG, 1, residual=spec, naux=spec["naux"],
+          record_states=True, feedback=True),
+      "walker_cost_sums": step_lane.build_rollout_kernel(
+          m, cfg.horizon, cfg.num_spline_points, residual=spec,
+          naux=spec["naux"], record_states=False, cost_terms=tuple(zip(
+              walker.cost_spec.norm_types, walker.cost_spec.dims))),
+      # the states build the cost-sums launch is checked through
+      "walker_states": step_lane.build_rollout_kernel(
+          m, cfg.horizon, cfg.num_spline_points, residual=spec,
+          naux=spec["naux"], record_states=True)}
+  qp_iters = ilqg.make_config(walker).boxqp_iters
+  riccati = riccati_lane.build_backward_kernel(2 * m.nv, m.nu,
+                                               HORIZON_WALKER_ILQG, qp_iters,
+                                               0)
+  return walker, kernels, riccati
+
+
+def gradient_kernel_inputs():
+  """While active, every batched Cholesky launch recorded into a CUDA graph
+  keeps a reference to its inputs (the graph's own buffers, which each
+  replay overwrites with that launch's inputs), and every fused scoring
+  launch a copy of its inputs."""
+  from mujoco_mpc_tpu_torch.ops import cholesky, scoring
+
+  seen = dict(chol=[], score=[])
+  launch_chol, launch_score = cholesky._launch, scoring._launch
+
+  def chol(a, b):
+    if torch.cuda.is_current_stream_capturing():
+      seen["chol"].append((a, b))
+    return launch_chol(a, b)
+
+  def score(res, cs):
+    seen["score"].append((res.clone(), cs))
+    return launch_score(res, cs)
+
+  @contextlib.contextmanager
+  def active():
+    cholesky._launch, scoring._launch = chol, score
+    try:
+      yield seen
+    finally:
+      cholesky._launch, scoring._launch = launch_chol, launch_score
+
+  return active
+
+
+@contextlib.contextmanager
+def eager_bodies():
+  """Inside the block every rollout.GraphedBody made runs its function
+  eagerly at each call, uncaptured: the route the CUDA graphs replace."""
+  from mujoco_mpc_tpu_torch import rollout
+
+  class Eager:
+    def __init__(self, body, device):
+      self.body = body
+
+    def __call__(self):
+      self.body()
+
+  graphed = rollout.GraphedBody
+  rollout.GraphedBody = Eager
+  try:
+    yield
+  finally:
+    rollout.GraphedBody = graphed
+
+
+def contact_gradient_paths(counters, path_launches, card, device,
+                           built=None):
+  """Phase 11: the Gradient planner on Swimmer (graph-replayed forward and
+  reverse passes, the line search's batched rollouts on B4 and B3), iLQG on
+  Walker at BASELINE config 2b (derivatives through the contact rows, B1
+  feedback with capsule ground contacts, B2 at Walker's size) and Walker
+  under the agent (the lane sampler; step_env a CUDA graph of the contact
+  pipeline step). Adds each path's launches to `path_launches` and returns
+  the summary entries of the builds and sizes the phase brings."""
+  from mujoco_mpc_tpu_torch import testspeed
+  from mujoco_mpc_tpu_torch.agent.agent import Agent
+  from mujoco_mpc_tpu_torch.ops import (cholesky, riccati_lane, scoring,
+                                        step_lane)
+  from mujoco_mpc_tpu_torch.planners import base as planner_base
+  from mujoco_mpc_tpu_torch.planners import gradient, ilqg
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  t_phase = time.perf_counter()
+  walker, _, riccati = built or walker_builds(device)
+  entries = []
+
+  def stage_ms(events, names):
+    return {n: float(np.mean([e[p].elapsed_time(e[n]) for e in events]))
+            for p, n in zip(names, names[1:])}
+
+  # (a) Gradient on Swimmer at its own configuration (H=201)
+  swim = registry.get_task("Swimmer", device=device)
+  inputs = gradient_kernel_inputs()
+  with inputs() as seen:
+    planner = planner_base.make_planner(swim, "Gradient", device)
+    assert isinstance(planner, gradient.GradientPlanner)
+    assert planner.routes == dict(
+        value_and_grad="vjp_graphs", line_search="pipeline_graph",
+        spd_solve="kernel", scoring="kernel"), planner.routes
+    cfg = planner.config
+    assert (cfg.horizon, cfg.num_spline_points, cfg.num_steps) == (201, 10,
+                                                                    8), cfg
+    d0 = swim.make_data()
+    warmup = {"start": time.perf_counter()}
+
+    def host_mark(stage):
+      torch.cuda.synchronize()
+      warmup[stage] = time.perf_counter()
+
+    # warm-up: each step graph is run once and captured
+    planner.optimize(None, d0, mark=host_mark)
+    warmup_s = {n: warmup[n] - warmup[p] for p, n in zip(
+        ("start", "forward", "reverse"),
+        ("forward", "reverse", "line_search"))}
+  captured_chol = list(seen["chol"])
+  zero_counts(counters)
+  events, infos = [], []
+
+  def mark(stage):
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    events[-1][stage] = event
+
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(GRADIENT_ITERATIONS):
+    events.append({})
+    infos.append(planner.optimize(None, d0, mark=mark))
+  end.record()
+  torch.cuda.synchronize()
+  launches = read_counts(counters)
+  path_launches["gradient_path"] = launches
+  grad_ms = start.elapsed_time(end) / GRADIENT_ITERATIONS
+  seen["score"].clear()
+  with inputs():
+    _, syncs = count_syncs(lambda: planner.optimize(None, d0))
+    torch.cuda.synchronize()
+  stages = stage_ms(events, ("start", "forward", "reverse", "line_search"))
+  nominal = [float(i["nominal_return"]) for i in infos]
+  best = [float(i["best_return"]) for i in infos]
+  gnorm = [float(i["grad_norm"]) for i in infos]
+  emit("gradient_path", task="Swimmer", H=cfg.horizon,
+       P=cfg.num_spline_points, line_search_candidates=cfg.num_steps,
+       iterations=GRADIENT_ITERATIONS, ms_per_iteration=grad_ms,
+       stage_ms=stages, glue_ms=grad_ms - sum(stages.values()),
+       warmup_s=warmup_s, host_syncs_per_iteration=syncs, launches=launches,
+       cholesky_launches_per_iteration=launches["cholesky"] /
+       GRADIENT_ITERATIONS,
+       nominal_return=nominal, best_return=best, grad_norm=gnorm,
+       step=[float(i["step"]) for i in infos],
+       improved=[bool(i["improved"]) for i in infos], routes=planner.routes,
+       card=card)
+  assert launches["scoring"] == GRADIENT_ITERATIONS, launches
+  assert launches["cholesky"] > 0 and launches["cholesky"] % \
+      GRADIENT_ITERATIONS == 0, launches
+  assert launches["rollout"] == 0 and launches["riccati"] == 0, launches
+  for i in range(GRADIENT_ITERATIONS):
+    assert np.isfinite(nominal[i]) and np.isfinite(best[i]), (nominal, best)
+    assert best[i] <= nominal[i] and nominal[i] < 1e6, (i, best, nominal)
+    assert np.isfinite(gnorm[i]) and gnorm[i] > 1e-9, gnorm
+  assert syncs == 0, syncs
+
+  # B3 and B4 on the line search's own inputs: the scorer's residuals of
+  # the last iteration, and the Cholesky systems of the line search's last
+  # replayed step (the graph's own input buffers)
+  (res, cs), = seen["score"]
+  got = scoring._launch(res, cs)
+  want = scoring.score_reference(res.permute(2, 0, 1), cs)
+  torch.cuda.synchronize()
+  err_score = float((got - want).abs().max())
+  score_ok = bool(((got - want).abs() <= TOL_SCORE +
+                   TOL_SCORE * want.abs()).all())
+  sb, so = score_work(cs, res.shape[0], res.shape[2])
+  score_row = dict(
+      T=res.shape[0], nr=res.shape[1], K=res.shape[2],
+      strides=list(res.stride()), max_abs_err=err_score, within_tol=score_ok,
+      graph_ms=graph_launch_ms(lambda: scoring._launch(res, cs)),
+      device_ms=device_ms(lambda: scoring._launch(res, cs), 50,
+                          "score_fused"),
+      call_ms=time_cuda(lambda: scoring._launch(res, cs), 50),
+      plain_ms=host_ms(lambda: scoring.score_reference(
+          res.permute(2, 0, 1), cs)),
+      layout=scoring.layout(res.shape[2], res.shape[0],
+                            scoring.sm_count(torch.cuda.current_device())),
+      bytes=sb, flops=so, bytes_ms=sb / H100_BYTES_PER_S * 1e3,
+      ops_ms=so / H100_F32_FLOPS * 1e3)
+  line_chol = [(a, b) for a, b in captured_chol
+               if a.shape[-1] == cfg.num_steps]
+  assert line_chol, [tuple(a.shape) for a, _ in captured_chol]
+  chol_errs = []
+  for a, b in line_chol:
+    x = cholesky._launch(a, b)
+    xp = cholesky.chol_solve_lanes_plain(a, b)
+    torch.cuda.synchronize()
+    chol_errs.append((float((x - xp).abs().max()), bool(
+        ((x - xp).abs() <= TOL_CHOL + TOL_CHOL * xp.abs()).all())))
+  a, b = (x.contiguous() for x in line_chol[0])
+  n, k = b.shape
+  cb, co = chol_work(n, k)
+  am, bm = a.permute(2, 0, 1).contiguous(), b.T.contiguous()[..., None]
+  chol_row = dict(
+      n=n, K=k, systems_checked=len(line_chol),
+      max_abs_err=max(e for e, _ in chol_errs),
+      within_tol=all(ok for _, ok in chol_errs),
+      graph_ms=graph_launch_ms(lambda: cholesky._launch(a, b)),
+      device_ms=device_ms(lambda: cholesky._launch(a, b), 50,
+                          "chol_solve_lanes"),
+      call_ms=time_cuda(lambda: cholesky._launch(a, b), 50),
+      plain_ms=host_ms(lambda: cholesky.chol_solve_lanes_plain(a, b)),
+      library_ms=time_cuda(lambda: torch.linalg.solve(am, bm), 20),
+      layout=cholesky.layout(n), bytes=cb, flops=co,
+      bytes_ms=cb / H100_BYTES_PER_S * 1e3, ops_ms=co / H100_F32_FLOPS * 1e3)
+  emit("gradient_path", case="kernels_on_the_line_search_inputs",
+       score_fused=score_row, chol_solve_lanes=chol_row, tol_score=TOL_SCORE,
+       tol_chol=TOL_CHOL, card=card)
+  assert score_ok and chol_row["within_tol"], (score_row, chol_row)
+
+  # the graph route against the eager route at a short horizon, from the
+  # same policy: value and gradient, and the line search's returns; the
+  # eager route runs the same step functions uncaptured
+  short = cfg.replace(horizon=GRADIENT_CHECK_HORIZON)
+  outs = {}
+  for g in (True, False):
+    with contextlib.nullcontext() if g else eager_bodies():
+      p = gradient.GradientPlanner(swim, short, device=device)
+      p.policy = planner.policy
+      t0 = time.perf_counter()
+      info = p.optimize(None, d0)
+      torch.cuda.synchronize()
+    outs[g] = (info, time.perf_counter() - t0)
+  (gi, g_s), (ei, e_s) = outs[True], outs[False]
+  graph_err = dict(
+      nominal_return=abs(float(gi["nominal_return"] - ei["nominal_return"])),
+      grad_norm=abs(float(gi["grad_norm"] - ei["grad_norm"])),
+      returns=float((gi["returns"] - ei["returns"]).abs().max()),
+      candidates=float((gi["candidates"] - ei["candidates"]).abs().max()))
+  emit("gradient_path", case="graphs_vs_eager", H=GRADIENT_CHECK_HORIZON,
+       graph_s_first_call=g_s, eager_s=e_s, abs_err=graph_err,
+       tol_rel=TOL_GRAPH_VS_EAGER, card=card)
+  for key in ("nominal_return", "grad_norm"):
+    assert graph_err[key] <= TOL_GRAPH_VS_EAGER * abs(float(ei[key])), \
+        graph_err
+  assert graph_err["returns"] <= TOL_GRAPH_VS_EAGER * float(
+      ei["returns"].abs().max()), graph_err
+
+  # (b) iLQG on Walker at BASELINE config 2b (H=32) from the task's start
+  records = {}
+  with recording_rollouts(records):
+    wplanner = ilqg.ILQGPlanner(walker, ilqg.make_config(walker).replace(
+        horizon=HORIZON_WALKER_ILQG), device=device)
+  assert wplanner.routes == dict(line_search="kernel", backward="kernel"), \
+      wplanner.routes
+  wm = walker.plan_model
+  wd0 = walker.make_data()
+  wplanner.optimize(None, wd0)         # warm-up
+  torch.cuda.synchronize()
+  zero_counts(counters)
+  events, winfos = [], []
+  start.record()
+  for _ in range(WALKER_ILQG_ITERATIONS):
+    events.append({})
+    winfos.append(wplanner.optimize(None, wd0, mark=mark))
+  end.record()
+  torch.cuda.synchronize()
+  launches = read_counts(counters)
+  path_launches["walker_ilqg_path"] = launches
+  wms = start.elapsed_time(end) / WALKER_ILQG_ITERATIONS
+  wstages = stage_ms(events, ("start", "nominal_line_search", "derivatives",
+                              "backward", "action_line_search"))
+  sweeps = [i["backward_sweeps"] for i in winfos]
+  nominal = [float(i["nominal_return"]) for i in winfos]
+  best = [float(i["best_return"]) for i in winfos]
+  ncon_rows = 4 * wm.collision_pairs.ncon
+  emit("walker_ilqg_path", task="Walker", config="2b", H=HORIZON_WALKER_ILQG,
+       ndx=2 * wm.nv, nu=wm.nu, contact_rows=ncon_rows,
+       iterations=WALKER_ILQG_ITERATIONS, ms_per_iteration=wms,
+       stage_ms=wstages, glue_ms=wms - sum(wstages.values()),
+       launches=launches, backward_sweeps_per_iteration=sweeps,
+       nominal_return=nominal, best_return=best,
+       reg=[float(i["reg"]) for i in winfos], card=card)
+  assert launches["rollout"] == 2 * WALKER_ILQG_ITERATIONS, launches
+  assert launches["riccati"] == sum(sweeps) >= WALKER_ILQG_ITERATIONS, \
+      (launches, sweeps)
+  assert launches["scoring"] == 0 and launches["cholesky"] == 0, launches
+  for i in range(WALKER_ILQG_ITERATIONS):
+    assert np.isfinite(best[i]) and best[i] <= nominal[i] < 1e6, \
+        (i, best, nominal)
+  # one more iteration, both kernels held against their plain versions on
+  # the planner's own inputs: B2 on every sweep, B1 on its last launch
+  build_backward = riccati_lane.build_backward_kernel
+  riccati_checks = []
+
+  def checked_backward(*a, **kw):
+    kern = build_backward(*a, **kw)
+
+    def backward(*args):
+      riccati_checks.append(check_riccati_on_path(kern, args))
+      return kern(*args)
+
+    return backward
+
+  riccati_lane.build_backward_kernel = checked_backward
+  try:
+    checked = ilqg.ILQGPlanner(walker, wplanner.config, device=device)
+  finally:
+    riccati_lane.build_backward_kernel = build_backward
+  checked.policy = wplanner.policy
+  checked.optimize(None, wd0)
+  torch.cuda.synchronize()
+  (recorded,) = records.values()
+  row = recorded_check("walker_feedback_on_path", recorded, walker, card)
+  emit("walker_ilqg_path", case="riccati_on_the_planners_inputs",
+       riccati=riccati_checks, card=card)
+  assert riccati_checks and all(r["passes"] for r in riccati_checks), \
+      riccati_checks
+  # config 2b starts airborne, so the path's own feedback launches see no
+  # ground row: a new planner's first iteration from a pressed state (the
+  # lowest foot 2 mm into the floor: a walker started on the floor), its
+  # last feedback launch held to the plain version, the whole-rollout
+  # gaps explained by the nudged witness
+  pressed_q = wd0.qpos.clone()
+  pressed_q[1] -= step_lane.contact_clearance(wm, pressed_q) + 0.002
+  records.clear()
+  with recording_rollouts(records):
+    pressed_planner = ilqg.ILQGPlanner(walker, wplanner.config,
+                                       device=device)
+  pressed_planner.optimize(None, wd0.replace(qpos=pressed_q))
+  torch.cuda.synchronize()
+  (pressed,) = records.values()
+  out = pressed[0](*pressed[2], **pressed[3])
+  ground_rows = sum(n for t in range(HORIZON_WALKER_ILQG)
+                    for key, n in active_rows(wm, step_lane.contact_gaps(
+                        wm, out[t, :wm.nq])).items() if "plane" in key)
+  prow = recorded_check("walker_feedback_pressed", pressed, walker, card,
+                        witness=True)
+  emit("walker_ilqg_path", case="feedback_from_a_pressed_state",
+       active_ground_rows=ground_rows, card=card)
+  assert ground_rows > 0, ground_rows
+  entries.append(rollout_entry(
+      "walker_feedback", row, "walker_ilqg_path",
+      dict(walker_ilqg_path=launches["rollout"]),
+      layout=b1_layout(recorded[0], row["K"]),
+      pressed_state=dict(
+          active_ground_rows=ground_rows,
+          max_abs_err_states=prow["max_abs_err_states"],
+          max_err_states_abs_rel=prow["max_err_states_abs_rel"],
+          per_candidate=prow["per_candidate"])))
+  # B2 at Walker's size: time, plain time and bound on a problem of it
+  prob = riccati_problem(HORIZON_WALKER_ILQG, 2 * wm.nv, wm.nu, SEED + 11,
+                         False, device)
+  reg = torch.tensor(1e-3, device=device)
+  rrow = check_riccati(riccati, prob, reg, TOL_RICCATI_ABS)
+  rb, ro = riccati_work(2 * wm.nv, wm.nu, HORIZON_WALKER_ILQG,
+                        wplanner.config.boxqp_iters)
+  rrow.update(kernel_ms=time_cuda(lambda: riccati(*prob, reg), 50),
+              plain_ms=host_ms(lambda: riccati.plain(*prob, reg)),
+              bytes=rb, flops=ro, bytes_ms=rb / H100_BYTES_PER_S * 1e3,
+              ops_ms=ro / H100_F32_FLOPS * 1e3, layout=riccati.layout)
+  emit("kernels", case="riccati_walker", ndx=2 * wm.nv, nu=wm.nu,
+       T=HORIZON_WALKER_ILQG, card=card, **rrow)
+  assert rrow["within_tol"], rrow
+
+  # (c) Walker under the agent: testspeed on the lane sampler, step_env a
+  # CUDA graph of the contact pipeline step
+  records.clear()
+  zero_counts(counters)
+  with recording_rollouts(records):
+    out = testspeed.run("Walker", total_time=AGENT_WALKER_TIME,
+                        steps_per_planning_iteration=AGENT_STEPS_PER_PLAN,
+                        verbose=False, device=device, seed=SEED)
+  launches = read_counts(counters)
+  path_launches["agent_walker"] = launches
+  run = out["run"]
+  plans = len(run["plan_times"])
+  torso_z = run["states"][:, 1] + float(walker.model.body_pos[1, 2])
+  sim_s = float(len(run["costs"])) * float(walker.model.opt.timestep)
+  # the graph of one step against the eager step, standing on the floor
+  agent = Agent(walker)
+  qpos = agent.data.qpos.clone()
+  qpos[1] -= step_lane.contact_clearance(walker.model, qpos) + 0.002
+  agent.data = agent.data.replace(qpos=qpos)
+  graph_ms, eager_ms, graph_err = graph_and_eager_step_ms(agent)
+  emit("agent_walker", K=K_WALKER_AGENT, H=HORIZON_WALKER_AGENT, P=3,
+       simulated_s=sim_s, plans=plans, launches=launches,
+       realtime_factor=out["realtime_factor"],
+       plan_ms_p50=out["plan_time_p50"] * 1e3,
+       plan_ms_p90=out["plan_time_p90"] * 1e3,
+       step_ms_mean=out["step_time_mean"] * 1e3, wall_s=out["wall_time"],
+       cost_per_simulated_s=float(np.sum(run["costs"])) *
+       float(walker.model.opt.timestep) / sim_s,
+       avg_cost=out["avg_cost"], torso_height_min=float(torso_z.min()),
+       torso_height_last=float(torso_z[-1]), graph_step_ms=graph_ms,
+       eager_step_ms=eager_ms, graph_vs_eager_max_abs_err=graph_err,
+       routes=out["routes"], card=card)
+  assert out["routes"]["planner"] == "LaneSamplingPlanner", out["routes"]
+  assert launches["rollout"] == plans + 1 and launches["riccati"] == 0, \
+      (launches, plans)
+  assert np.isfinite(run["states"]).all() and np.isfinite(run["costs"]).all()
+  assert torso_z.min() > TORSO_FLOOR, float(torso_z.min())
+  assert graph_err <= TOL_STEP_GRAPH, graph_err
+  (recorded,) = records.values()
+  row = walker_cost_sums_check("agent_walker_cost_sums", recorded, walker,
+                               card)
+  entries.append(rollout_entry(
+      "walker_cost_sums", row, "agent_walker",
+      dict(agent_walker=launches["rollout"]),
+      layout=b1_layout(recorded[0], row["K"])))
+
+  # the new sizes of B2, B3 and B4
+  entries += [dict(
+      name="riccati_lane.backward[walker]", route="cuda",
+      source="mujoco_mpc_tpu_torch/ops/csrc/riccati_backward.cu",
+      replaces="mujoco_mpc_tpu/ops/riccati_lane.py:58",
+      launches=path_launches["walker_ilqg_path"]["riccati"],
+      launches_by_path=dict(
+          walker_ilqg_path=path_launches["walker_ilqg_path"]["riccati"]),
+      max_abs_err=max(rrow["max_abs_err_k"], rrow["max_abs_err_K"]),
+      ms=rrow["kernel_ms"], plain_ms=rrow["plain_ms"],
+      bound_ms=max(rrow["bytes_ms"], rrow["ops_ms"]),
+      bound_by="bytes" if rrow["bytes_ms"] >= rrow["ops_ms"]
+      else "operations", library_ms=None,
+      shape=dict(ndx=2 * wm.nv, nu=wm.nu, T=HORIZON_WALKER_ILQG)), dict(
+      name="scoring.score_fused[gradient_line_search]", route="cuda",
+      source="mujoco_mpc_tpu_torch/ops/csrc/score_fused.cu",
+      replaces="mujoco_mpc_tpu/ops/scoring.py:47",
+      launches=path_launches["gradient_path"]["scoring"],
+      launches_by_path=dict(
+          gradient_path=path_launches["gradient_path"]["scoring"]),
+      max_abs_err=err_score, ms=score_row["graph_ms"],
+      device_ms=score_row["device_ms"], call_ms=score_row["call_ms"],
+      plain_ms=score_row["plain_ms"],
+      bound_ms=max(score_row["bytes_ms"], score_row["ops_ms"]),
+      bound_by="bytes" if score_row["bytes_ms"] >= score_row["ops_ms"]
+      else "operations", library_ms=None,
+      shape=dict(K=score_row["K"], T=score_row["T"])), dict(
+      name="cholesky.chol_solve_lanes[gradient_line_search]", route="cuda",
+      source="mujoco_mpc_tpu_torch/ops/csrc/chol_solve_lanes.cu",
+      replaces="mujoco_mpc_tpu/ops/cholesky.py:66",
+      launches=path_launches["gradient_path"]["cholesky"],
+      launches_by_path=dict(
+          gradient_path=path_launches["gradient_path"]["cholesky"]),
+      max_abs_err=chol_row["max_abs_err"], ms=chol_row["graph_ms"],
+      device_ms=chol_row["device_ms"], call_ms=chol_row["call_ms"],
+      plain_ms=chol_row["plain_ms"],
+      bound_ms=max(chol_row["bytes_ms"], chol_row["ops_ms"]),
+      bound_by="bytes" if chol_row["bytes_ms"] >= chol_row["ops_ms"]
+      else "operations", library_ms=chol_row["library_ms"],
+      shape=dict(n=n, K=k))]
+  emit("contact_gradient_paths", seconds=time.perf_counter() - t_phase,
+       card=card)
+  return entries
+
+
 def main():
   # ---- 1. device ----
   if not torch.cuda.is_available():
@@ -1675,6 +2457,16 @@ def main():
                      scoring=scoring, cholesky=cholesky), {}, card, device)
     print(card, flush=True)
     print(json.dumps({"only": "agent_paths", "ok": True}), flush=True)
+    return 0
+  if sys.argv[1:] == ["--only", "contact_gradient_paths"]:
+    # phase 11 alone, its kernels built at first use
+    entries = contact_gradient_paths(
+        dict(rollout=step_lane, riccati=riccati_lane, scoring=scoring,
+             cholesky=cholesky), {}, card, device)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"only": "contact_gradient_paths", "ok": True}),
+          flush=True)
     return 0
 
   # ---- 2. build: every specialisation, all nvcc processes side by side --
@@ -1743,6 +2535,9 @@ def main():
   kernels.update(e_kernels)
   f_tasks, f_kernels, f_models = body_pair_builds(device)
   kernels.update(f_kernels)
+  walker_built = walker_builds(device)
+  kernels.update(walker_built[1])
+  riccati[("walker", 0)] = walker_built[2]
   score_tasks = {"quadruped": quad, "swimmer": swim, "cartpole": cart}
   chol_ns = sorted({n for n, _ in CHOL_SIZES})
   t0 = time.perf_counter()
@@ -2738,6 +3533,10 @@ def main():
   agent_entries = agent_paths(counters, path_launches, card, device,
                               main_ms=iter_ms)
 
+  # ---- 11. pipeline contacts and the Gradient planner ----
+  phase11_entries = contact_gradient_paths(counters, path_launches, card,
+                                           device, built=walker_built)
+
   # ---- 9. summary lines ----
   csrc = "mujoco_mpc_tpu_torch/ops/csrc/"
   print(json.dumps({"kernels": [{
@@ -2824,7 +3623,8 @@ def main():
       "library_ms": chol_main["library_ms"],
       "device_ms": chol_main["device_ms"],
       "layout": chol_main["layout"],
-  }] + slice_e_entries + slice_f_entries + agent_entries}), flush=True)
+  }] + slice_e_entries + slice_f_entries + agent_entries +
+      phase11_entries}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

@@ -17,8 +17,9 @@ planner. `routes` says which planner and kernels were taken, and why.
 
 Only the "Ground Truth" estimator exists here (the filters are ROADMAP
 queue 1 item 6). `step_env` steps the simulation model on the pipeline
-physics, which is contact-free: a task whose simulation model has
-contacts builds and plans, and `step_env` raises naming what is missing.
+physics (joint limits, pyramidal primitive contacts): a task whose
+simulation model needs more (elliptic cones, height fields, ...) builds
+and plans, and `step_env` raises naming what is missing.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def lane_eligibility(task, device) -> tuple:
 
 class StepGraph:
   """`physics.forward.step(m, d)` captured once as a CUDA graph and
-  replayed for each step.
+  replayed for each step (a `rollout.GraphedBody`).
 
   Eagerly one step of the pipeline physics is thousands of small device
   operations (Cartpole's RK4 step 13.7k, Swimmer's Euler step 4.8k: the
@@ -83,30 +84,37 @@ class StepGraph:
 
   def __init__(self, m):
     self.m = m
-    self.graph = None
+    self.body = None
 
-  def _capture(self, d):
-    self.inputs = {f: getattr(d, f).clone() for f in rollout_lib.CARRY_FIELDS}
-    d_in = Data(**self.inputs)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):         # warm up the libraries' handles
-      for _ in range(2):
-        F.step(self.m, d_in)
-    torch.cuda.current_stream().wait_stream(side)
-    self.graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(self.graph):
-      self.out = F.step(self.m, d_in)
+  def _step(self):
+    self.out = F.step(self.m, self.d_in)
 
   def __call__(self, d):
-    if self.graph is None:
-      self._capture(d)
+    first = self.body is None
+    if first:
+      self.inputs = {f: getattr(d, f).clone()
+                     for f in rollout_lib.CARRY_FIELDS}
+      self.d_in = Data(**self.inputs)
+      self.body = rollout_lib.GraphedBody(self._step, d.qpos.device)
     for f, buf in self.inputs.items():
       buf.copy_(getattr(d, f))
-    self.graph.replay()
-    return Data(**{f.name: None if getattr(self.out, f.name) is None
-                   else getattr(self.out, f.name).clone()
-                   for f in dataclasses.fields(Data)})
+    self.body()
+    if first:
+      # the first call ran the step and captured it, and the capture left
+      # its output buffers unwritten: the step is a pure function of the
+      # input buffers, so a replay fills them
+      self.body()
+    return _copy_out(self.out)
+
+
+def _copy_out(record):
+  """A copy of a Data (or of its Contact) whose tensors are the caller's
+  to keep, not the graph's output buffers."""
+  return type(record)(**{
+      f.name: _copy_out(v) if dataclasses.is_dataclass(v)
+      else v.clone() if isinstance(v, torch.Tensor) else v
+      for f in dataclasses.fields(record)
+      for v in [getattr(record, f.name)]})
 
 
 def _action_takes_state(planner) -> bool:

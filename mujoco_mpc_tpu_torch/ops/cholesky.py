@@ -31,15 +31,17 @@ import ctypes
 
 import torch
 
-from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import _build, launches
 
 EPS = 1e-10
 MAX_N = 32          # the kernel's gate: systems of 1 .. 32 unknowns
 BLOCK = 128         # threads (one a system) a block
 
-# launches of the CUDA kernel made by any wrapper of this module
-# (incremented where a wrapper launches, nowhere else)
+# launches of the CUDA kernel made by any wrapper of this module, counted
+# where a wrapper launches and nowhere else (ops/launches.py): eager ones
+# here, those replayed from a CUDA graph on the device
 launch_count = 0
+replay_counts = {}
 
 _LIBS = {}
 
@@ -141,7 +143,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"chol_solve_lanes launch failed: CUDA error {err}")
-  launch_count += 1
+  launch_count += launches.count(replay_counts, dev)
   return x
 
 

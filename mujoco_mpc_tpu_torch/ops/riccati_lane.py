@@ -31,13 +31,15 @@ from typing import Callable
 
 import torch
 
-from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import _build, launches
 
 REG_CONTROL, REG_STATE_CONTROL, REG_VALUE, REG_NONE = 0, 1, 2, 3
 
-# launches of the CUDA kernel made by any wrapper of this module
-# (incremented where a wrapper launches, nowhere else)
+# launches of the CUDA kernel made by any wrapper of this module, counted
+# where a wrapper launches and nowhere else (ops/launches.py): eager ones
+# here, those replayed from a CUDA graph on the device
 launch_count = 0
+replay_counts = {}
 
 # what a profiling build's (RB_PROFILE) stamps of a step delimit
 PROFILE_PHASES = ("Vxx A, Vxx B, Qx, Qu", "Q expansions",
@@ -155,7 +157,7 @@ def build_backward_kernel(ndx: int, nu: int, horizon: int,
           out.data_ptr(), None if prof is None else prof.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f"riccati_backward launch failed: CUDA error {err}")
-    launch_count += 1
+    launch_count += launches.count(replay_counts, dev)
     return ks, kmats, (out[0], out[1]), out[2] == 0.0
 
   def backward(a, b, cx, cu, cxx, cxu, cuu, du_lower, du_upper, reg):

@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from mujoco_mpc_tpu_torch.costs import norms
-from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import _build, launches
 
 SUPPORTED = (int(norms.NormType.QUADRATIC), int(norms.NormType.L2),
              int(norms.NormType.SMOOTH_ABS))
@@ -47,9 +47,11 @@ MAX_TILE = 32         # candidates a block: one warp's row of a step
 ROUTE_KERNEL = "kernel"
 ROUTE_PLAIN = "plain"
 
-# launches of the CUDA kernel made by any wrapper of this module
-# (incremented where a wrapper launches, nowhere else)
+# launches of the CUDA kernel made by any wrapper of this module, counted
+# where a wrapper launches and nowhere else (ops/launches.py): eager ones
+# here, those replayed from a CUDA graph on the device
 launch_count = 0
+replay_counts = {}
 
 _LIBS = {}
 
@@ -159,7 +161,7 @@ def _launch(residuals: torch.Tensor, cost_spec) -> torch.Tensor:
       err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"score_fused launch failed: CUDA error {err}")
-  launch_count += 1
+  launch_count += launches.count(replay_counts, dev)
   return out
 
 

@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.costs.norms import NormType
-from mujoco_mpc_tpu_torch.ops import _build
+from mujoco_mpc_tpu_torch.ops import _build, launches
 from mujoco_mpc_tpu_torch.ops import lanemath as lm
 from mujoco_mpc_tpu_torch.physics import kinematics
 from mujoco_mpc_tpu_torch.physics.model import (
@@ -69,9 +69,11 @@ from mujoco_mpc_tpu_torch.physics.model import (
     GEOM_SPHERE, HINGE, SLIDE, TRN_JOINT, TRN_SITE, Model, fluid_box,
     make_data)
 
-# launches of the CUDA kernel made by any rollout wrapper of this module
-# (incremented where a wrapper launches, nowhere else)
+# launches of the CUDA kernel made by any rollout wrapper of this module,
+# counted where a wrapper launches and nowhere else (ops/launches.py): eager
+# ones here, those replayed from a CUDA graph on the device
 launch_count = 0
+replay_counts = {}
 
 MODE_STATES, MODE_RESIDUALS, MODE_COST_SUMS = 0, 1, 2
 
@@ -1881,7 +1883,7 @@ def build_rollout_kernel(m: Model, horizon: int, num_nodes: int,
                              out1.data_ptr(), ws.data_ptr(), k, tpb, stream)
     if err != 0:
       raise RuntimeError(f"lane_rollout launch failed: CUDA error {err}")
-    launch_count += 1
+    launch_count += launches.count(replay_counts, dev)
     return out0 if mode == MODE_STATES else (out0, out1)
 
   def rollout(qpos0, qvel0, values, aux=None, table=None):

@@ -1,8 +1,19 @@
-"""Soft-constraint assembly and solver, restricted to joint-limit rows.
+"""Soft-constraint assembly and solver: joint-limit rows and pyramidal
+contact rows.
 
-A FIXED-SIZE constraint system: every side of every limited joint always
-has a row; rows whose gating distance is non-negative get zero stiffness
-(D = 0), so inactive rows are no-ops and all shapes are static.
+A FIXED-SIZE constraint system: every side of every limited joint and every
+selected candidate contact always has rows; rows whose gate (the gating
+distance, `efc_gate`) is non-negative get zero stiffness (D = 0), so
+inactive rows are no-ops and all shapes are static. The contact rows follow
+the joint-limit rows, as in the JAX package's make_constraint.
+
+Contacts are pyramidal: 2*(condim-1) rows a contact, J = Jn +/- mu_a J_a
+for each friction axis a (tangents, then torsion and rolling from the
+rotational relative Jacobian); all rows of a contact share diag = invw *
+2 mu0^2 (1 + mu0^2) / impratio; condim-1 contacts become two pure normal
+rows with diag 2 invw; rows of axes a contact's condim does not reach are
+gated off. When the candidates outnumber `opt.max_contact_points`, only
+the deepest (top-k over -gap) get rows.
 
 The solver minimizes the primal objective
 
@@ -12,18 +23,20 @@ with one-sided quadratic costs, by a fixed number of Newton iterations with
 a safeguarded exact 1-D line search. Everything is `where`-based, so the
 solve is differentiable as written (forward-mode AD passes through it).
 
-Contact rows (pyramidal and elliptic), equality, tendon-limit and
-friction-loss rows and the noslip post-solver of the JAX package's
-physics/constraint.py are not ported yet; physics/forward.py refuses models
-that need them.
+Elliptic cones, equality, tendon-limit and friction-loss rows and the
+noslip post-solver of the JAX package's physics/constraint.py are not
+ported yet; physics/forward.py refuses models that need them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mujoco_mpc_tpu_torch.physics import collision as coll
+from mujoco_mpc_tpu_torch.physics import math as mm
 from mujoco_mpc_tpu_torch.physics import smooth as S
-from mujoco_mpc_tpu_torch.physics.model import Data, Model
+from mujoco_mpc_tpu_torch.physics.model import (CONE_ELLIPTIC, Contact, Data,
+                                                Model)
 
 _MINVAL = 1e-15
 _MINIMP = 0.0001
@@ -77,31 +90,141 @@ def _limit_rows(m: Model, d: Data):
           t["lim_solimp"], t["lim_diag"])
 
 
+def contact_layout(m: Model) -> tuple:
+  """Static contact-block layout (k, namax, rows_per_contact): k selected
+  contacts, namax friction axes built a contact (max condim - 1, at least
+  2), rows a contact (pyramidal 2 namax, elliptic 1 + namax)."""
+  cp = m.collision_pairs
+  if cp is None or cp.ncon == 0:
+    return 0, 0, 0
+  k = min(m.opt.max_contact_points, cp.ncon)
+  namax = max(2, int(cp.con_condim.max()) - 1)
+  nrow = (1 + namax) if m.opt.cone == CONE_ELLIPTIC else 2 * namax
+  return k, namax, nrow
+
+
+def _body_jac(m: Model, d: Data, body: torch.Tensor, point: torch.Tensor):
+  """Translational Jacobians (k, 3, nv) of world points on bodies."""
+  ref = d.subtree_com[m.dev["body_rootid"][body]]            # (k, 3)
+  offset = (point - ref)[:, None, :]                         # (k, 1, 3)
+  jac = d.cdof[None, :, 3:] + mm.cross(d.cdof[None, :, :3], offset)
+  mask = m.dev["body_dof_mask"][body][:, :, None]            # (k, nv, 1)
+  return (jac * mask).transpose(1, 2)
+
+
+def _rot_jac(m: Model, d: Data, body: torch.Tensor):
+  """Rotational Jacobians (k, 3, nv) of bodies."""
+  mask = m.dev["body_dof_mask"][body][:, :, None]
+  return (d.cdof[None, :, :3] * mask).transpose(1, 2)
+
+
+def _contact_rows(m: Model, d: Data):
+  """(Contact, (J, pos, solref, solimp, gate, diag)) of the pyramidal
+  contact rows, or (None, None) for a model without candidate contacts."""
+  cp = m.collision_pairs
+  if cp is None or cp.ncon == 0:
+    return None, None
+  if m.opt.cone == CONE_ELLIPTIC:
+    raise NotImplementedError(
+        "elliptic friction cones are not ported to the pipeline physics "
+        "(ROADMAP queue 1 item 4)")
+  t = m.dev
+  dist, pos, n = coll.collide(m, d)
+  frame = coll.make_contact_frame(n)                         # (ncon, 3, 3)
+  gap = dist - t["con_includemargin"]      # gating distance: < 0 is active
+  k, namax, nrow = contact_layout(m)
+  names = ("con_friction", "con_solref", "con_solimp", "con_includemargin",
+           "con_condim", "con_body1", "con_body2", "con_geom1", "con_geom2",
+           "con_invw", "con_row_ok", "con_c1_axis0", "con_is_c1")
+  if k < cp.ncon:
+    # the k deepest candidates (sorted, as the JAX package's top_k)
+    _, sel = torch.topk(-gap, k)
+    dist, pos, frame, gap = dist[sel], pos[sel], frame[sel], gap[sel]
+    c = {name: t[name][sel] for name in names}
+  else:
+    c = {name: t[name] for name in names}
+  friction = c["con_friction"]
+  mu0 = friction[:, 0]
+  impratio = torch.clamp(m.opt.impratio, min=_MINVAL)
+  contact = Contact(
+      dist=dist, pos=pos, frame=frame, includemargin=c["con_includemargin"],
+      friction=friction, solref=c["con_solref"], solimp=c["con_solimp"],
+      geom1_id=c["con_geom1"], geom2_id=c["con_geom2"], body1=c["con_body1"],
+      body2=c["con_body2"], dim=c["con_condim"],
+      mu_eff=mu0 / torch.sqrt(impratio), cone=int(m.opt.cone), namax=namax)
+
+  b1, b2 = c["con_body1"], c["con_body2"]
+  jrel = _body_jac(m, d, b2, pos) - _body_jac(m, d, b1, pos)
+  jc = frame @ jrel                                          # (k, 3, nv)
+  # friction-axis Jacobians: the tangents, then (condim > 3) torsion and
+  # rolling from the rotational relative Jacobian
+  if namax > 2:
+    jr = frame @ (_rot_jac(m, d, b2) - _rot_jac(m, d, b1))
+    axes_j = torch.cat([jc[:, 1:3], jr[:, 0:1], jr[:, 1:3]], dim=1)[:, :namax]
+  else:
+    axes_j = jc[:, 1:3]                                      # (k, 2, nv)
+
+  # condim-1 contacts ride axis 0 as two pure normal rows (mu = 0)
+  mu_row = torch.where(c["con_c1_axis0"], torch.zeros_like(mu0[:, None]),
+                       friction[:, :namax])
+  jn = jc[:, 0:1, :]
+  plus = jn + mu_row[..., None] * axes_j                     # (k, namax, nv)
+  minus = jn - mu_row[..., None] * axes_j
+  rows_j = torch.stack([plus, minus], dim=2).reshape(k * nrow, m.nv)
+  # all rows of a contact share the friction[0]-based diag, stiffened by
+  # impratio; frictionless contacts are not
+  invw = c["con_invw"]
+  diag_c = torch.where(c["con_is_c1"], 2.0 * invw,
+                       invw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0) / impratio)
+  gate = torch.where(c["con_row_ok"], gap[:, None], torch.ones_like(
+      gap[:, None]))
+  gate = torch.stack([gate, gate], dim=2).reshape(k * nrow)
+
+  def per_row(x):
+    return x[:, None].expand(k, nrow, *x.shape[1:]).reshape(
+        k * nrow, *x.shape[1:])
+
+  return contact, (rows_j, per_row(gap), per_row(c["con_solref"]),
+                   per_row(c["con_solimp"]), gate, per_row(diag_c))
+
+
 def make_constraint(m: Model, d: Data) -> Data:
-  """Assemble fixed-size efc_{J, pos, ...} (positions stage)."""
+  """Assemble fixed-size efc_{J, pos, ...} (positions stage): the limit
+  rows, then the contact rows."""
+  dtype, device = d.qpos.dtype, d.qpos.device
+  parts = []
   lim = _limit_rows(m, d)
-  if lim is None:
-    z = torch.zeros((0,), dtype=d.qpos.dtype, device=d.qpos.device)
+  if lim is not None:
+    lj, lp, lr, li, ld = lim
+    parts.append((lj, lp, lr, li, lp, ld))     # a limit is active iff pos < 0
+  contact, con = _contact_rows(m, d)
+  if con is not None:
+    parts.append(con)
+  if not parts:
+    z = torch.zeros((0,), dtype=dtype, device=device)
     return d.replace(
-        efc_J=torch.zeros((0, m.nv), dtype=d.qpos.dtype,
-                          device=d.qpos.device),
+        efc_J=torch.zeros((0, m.nv), dtype=dtype, device=device),
         efc_pos=z, efc_solref=z.reshape(0, 2), efc_solimp=z.reshape(0, 5),
-        efc_diag=z, efc_D=z, efc_aref=z)
-  lj, lp, lr, li, ld = lim
-  return d.replace(efc_J=lj, efc_pos=lp, efc_solref=lr, efc_solimp=li,
-                   efc_diag=ld)
+        efc_diag=z, efc_gate=z, efc_eq=z, efc_D=z, efc_aref=z)
+  if len(parts) == 1:
+    j, pos, ref, imp, gate, diag = parts[0]
+  else:
+    j, pos, ref, imp, gate, diag = (torch.cat(x) for x in zip(*parts))
+  return d.replace(contact=contact, efc_J=j, efc_pos=pos, efc_solref=ref,
+                   efc_solimp=imp, efc_gate=gate, efc_diag=diag,
+                   efc_eq=torch.zeros_like(pos))
 
 
 def reference_constraint(m: Model, d: Data) -> Data:
-  """Velocity stage: aref and D for all rows. A limit row is active iff its
-  position is negative."""
+  """Velocity stage: aref and D for all rows. A row is active iff its gate
+  is negative."""
   if d.efc_J.shape[0] == 0:
     return d
   jv = d.efc_J @ d.qvel
   aref, imp = _kbi(d.efc_solref, d.efc_solimp, d.efc_pos, jv)
   r = torch.clamp((1.0 - imp) / torch.clamp(imp, min=_MINVAL) *
                   torch.clamp(d.efc_diag, min=_MINVAL), min=_MINVAL)
-  gate = (d.efc_pos < 0).to(r.dtype)
+  gate = (d.efc_gate < 0).to(r.dtype)
   return d.replace(efc_D=gate / r, efc_aref=aref)
 
 
@@ -190,5 +313,15 @@ def solve(m: Model, d: Data) -> Data:
   # recompute the final qacc consistently:
   # M qacc = qfrc_smooth + qfrc_constraint
   qacc = S.solve_m(m, d, d.qfrc_smooth + qfrc_constraint)
-  return d.replace(qacc=qacc, qfrc_constraint=qfrc_constraint,
-                   efc_force=efc_force)
+  d = d.replace(qacc=qacc, qfrc_constraint=qfrc_constraint,
+                efc_force=efc_force)
+  if d.contact is not None:
+    # contact-frame forces from the pyramidal tail rows (a0+, a0-, a1+, ...):
+    # f_n = sum(lam), f_ti = mu_i (lam_i+ - lam_i-)
+    k, namax = d.contact.dist.shape[0], d.contact.namax
+    lam = efc_force[efc_force.shape[0] - 2 * namax * k:].reshape(k, namax, 2)
+    f_n = torch.sum(lam, dim=(1, 2))
+    f_t = d.contact.friction[:, :2] * (lam[:, :2, 0] - lam[:, :2, 1])
+    d = d.replace(contact=d.contact.replace(
+        force=torch.cat([f_n[:, None], f_t], dim=1)))
+  return d

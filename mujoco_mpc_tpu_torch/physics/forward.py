@@ -1,5 +1,5 @@
 """Forward dynamics pipeline and integrators (mj_forward / mj_step
-semantics) for contact-free models.
+semantics) for models with joint limits and pyramidal contacts.
 
 Pure functions `forward(m, d) -> d` and `step(m, d) -> d` on unbatched
 tensors, written so that `torch.func.vmap` and `torch.func.jacfwd` trace
@@ -7,12 +7,14 @@ them: batches and derivatives come from those transforms.
 
 Ported: kinematics, com quantities, mass matrix, RNE bias, springs,
 dampers and the inertia-box fluid model, joint transmissions with
-fixed/affine gain and bias, joint-limit rows with the Newton solve, the
-Euler (implicit joint damping) and RK4 integrators. A model that needs
-anything else — contacts, equality or tendon constraints, friction loss,
-muscles, tendon or site transmissions, activation states, the implicit
-integrators, noslip — raises NotImplementedError naming what is missing
-(`check_supported`); it is never stepped wrongly.
+fixed/affine gain and bias, joint-limit rows, contact rows with pyramidal
+cones from the primitive narrowphase (physics/collision.py), the Newton
+solve, the Euler (implicit joint damping) and RK4 integrators. A model that
+needs anything else — height-field or mesh contacts, elliptic cones,
+equality or tendon constraints, friction loss, muscles, tendon or site
+transmissions, activation states, the implicit integrators, noslip — raises
+NotImplementedError naming what is missing (`check_supported`); it is never
+stepped wrongly.
 """
 
 from __future__ import annotations
@@ -20,20 +22,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mujoco_mpc_tpu_torch.physics import collision as coll
 from mujoco_mpc_tpu_torch.physics import constraint as C
 from mujoco_mpc_tpu_torch.physics import kinematics as K
 from mujoco_mpc_tpu_torch.physics import math as mm
 from mujoco_mpc_tpu_torch.physics import smooth as S
-from mujoco_mpc_tpu_torch.physics.model import (BALL, DYN_NONE, EULER, FREE,
-                                                GAIN_MUSCLE, BIAS_MUSCLE,
+from mujoco_mpc_tpu_torch.physics.model import (BALL, BIAS_MUSCLE,
+                                                CONE_ELLIPTIC, DYN_NONE,
+                                                EULER, FREE, GAIN_MUSCLE,
                                                 RK4, TRN_JOINT, Data, Model)
 
 
 def unsupported(m: Model) -> list:
   """What `m` needs that the pipeline physics does not have yet."""
   missing = []
-  if m.collision_pairs is not None and m.collision_pairs.ncon > 0:
-    missing.append(f"contacts ({m.collision_pairs.ncon} candidate contacts)")
+  cp = m.collision_pairs
+  if cp is not None and cp.ncon > 0:
+    bad = coll.unsupported_groups(cp)
+    if bad:
+      missing.append("height-field / mesh contacts: " + ", ".join(bad))
+    if m.opt.cone == CONE_ELLIPTIC:
+      missing.append(f"elliptic friction cones ({cp.ncon} candidate "
+                     "contacts; ROADMAP queue 1 item 4)")
   if m.neq:
     missing.append(f"equality constraints (neq={m.neq})")
   if m.ntendon:
@@ -59,8 +69,8 @@ def check_supported(m: Model) -> None:
   missing = unsupported(m)
   if missing:
     raise NotImplementedError(
-        "the pipeline physics is ported for contact-free models only; "
-        "this model needs: " + "; ".join(missing))
+        "the pipeline physics is ported for joint limits and pyramidal "
+        "primitive contacts only; this model needs: " + "; ".join(missing))
 
 
 def fwd_position(m: Model, d: Data) -> Data:

@@ -17,7 +17,8 @@ from mujoco_mpc_tpu_torch.physics.model import (BALL, FREE, HINGE, SLIDE,
 
 
 def kinematics(m: Model, d: Data) -> Data:
-  """Body / site frames from qpos."""
+  """Body / site frames from qpos, and the geom frames where the model has
+  candidate contacts."""
   qpos = d.qpos
   nb = m.nbody
   zero3 = torch.zeros(3, dtype=qpos.dtype, device=qpos.device)
@@ -75,9 +76,16 @@ def kinematics(m: Model, d: Data) -> Data:
   bs = m.dev["site_bodyid"]
   site_xpos = xpos[bs] + mm.rot_vec_quat(xquat[bs], m.site_pos)
   site_xmat = mm.quat_to_mat(mm.mul_quat(xquat[bs], m.site_quat))
-  return d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
-                   ximat=ximat, xanchor=xanchor, xaxis=xaxis,
-                   site_xpos=site_xpos, site_xmat=site_xmat)
+  out = dict(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos, ximat=ximat,
+             xanchor=xanchor, xaxis=xaxis, site_xpos=site_xpos,
+             site_xmat=site_xmat)
+  if m.dev["coll_groups"]:
+    # geom frames: what the collision narrowphase reads
+    bg = m.dev["geom_bodyid"]
+    out.update(geom_xpos=xpos[bg] + mm.rot_vec_quat(xquat[bg], m.geom_pos),
+               geom_xmat=mm.quat_to_mat(mm.mul_quat(xquat[bg],
+                                                    m.geom_quat)))
+  return d.replace(**out)
 
 
 def com_pos(m: Model, d: Data) -> Data:

@@ -9,8 +9,8 @@ writes, no data-dependent Python branches). Conventions follow MuJoCo:
     the world frame at a stated point (the "c-frame" convention of
     cvel/cdof/cinert).
 
-The segment routines of the JAX package's physics/math.py arrive with the
-collision narrowphase.
+The segment routines at the end serve the collision narrowphase
+(physics/collision.py).
 """
 
 from __future__ import annotations
@@ -175,3 +175,33 @@ def transform_inertia(mass: torch.Tensor, diag_inertia: torch.Tensor,
                    i_ref[..., 0, 1], i_ref[..., 0, 2], i_ref[..., 1, 2]],
                   dim=-1),
       h, mass[..., None]], dim=-1)
+
+
+def closest_segment_point(a: torch.Tensor, b: torch.Tensor,
+                          p: torch.Tensor) -> torch.Tensor:
+  """Closest point to p on segment [a, b]."""
+  ab = b - a
+  denom = torch.clamp(torch.sum(ab * ab, dim=-1, keepdim=True), min=1e-12)
+  t = torch.clamp(torch.sum((p - a) * ab, dim=-1, keepdim=True) / denom,
+                  0.0, 1.0)
+  return a + t * ab
+
+
+def closest_segment_segment(a0: torch.Tensor, a1: torch.Tensor,
+                            b0: torch.Tensor, b1: torch.Tensor):
+  """Closest points between segments [a0, a1] and [b0, b1]: the clamped
+  parameter of each segment, then the first re-clamped against the
+  second's (approximate where both clamp)."""
+  da = a1 - a0
+  db = b1 - b0
+  r = a0 - b0
+  aa = torch.sum(da * da, dim=-1)
+  bb = torch.sum(db * db, dim=-1)
+  ab = torch.sum(da * db, dim=-1)
+  ar = torch.sum(da * r, dim=-1)
+  br = torch.sum(db * r, dim=-1)
+  denom = torch.clamp(aa * bb - ab * ab, min=1e-12)
+  t = torch.clamp((ab * br - bb * ar) / denom, 0.0, 1.0)
+  u = torch.clamp((ab * t + br) / torch.clamp(bb, min=1e-12), 0.0, 1.0)
+  t = torch.clamp((ab * u - ar) / torch.clamp(aa, min=1e-12), 0.0, 1.0)
+  return a0 + t[..., None] * da, b0 + u[..., None] * db

@@ -1,14 +1,17 @@
 """Model / Data records.
 
 `Model` holds a compiled MuJoCo model restricted to what the ported paths
-read (the lane rollout kernel and its planners, the contact-free pipeline
-physics): tree-structure tables stay host-side numpy arrays (they drive
+read (the lane rollout kernel and its planners, the pipeline physics):
+tree-structure tables stay host-side numpy arrays (they drive
 static loops and fill the kernel's constant tables), numeric parameters
 are float32 tensors on the chosen device. Field names
 are those of the JAX package's physics/model.py so a reader finds the
 counterpart. Building a Model straight from an `MjModel` (`put_model`)
 arrives in a later slice; for now a Model comes from a dictionary of numpy
-arrays (`Model.from_numpy`, see convert.py).
+arrays (`Model.from_numpy`, see convert.py). A contact-free model's Data
+leaves the contact fields None; a model with candidate contacts fills
+`contact` (a `Contact` record of the selected candidates) and the rows'
+`efc_gate`.
 """
 
 from __future__ import annotations
@@ -91,6 +94,23 @@ class CollisionPairs:
   con_solref: Optional[np.ndarray] = None         # (ncon, 2)
   con_solimp: Optional[np.ndarray] = None         # (ncon, 5)
   con_includemargin: Optional[np.ndarray] = None
+  # the geoms of each candidate contact: every pair of every group, in
+  # order, repeated ncon_per_pair times (derived from the groups)
+  con_geom1: Optional[np.ndarray] = None
+  con_geom2: Optional[np.ndarray] = None
+
+
+def contact_geoms(groups) -> tuple:
+  """(con_geom1, con_geom2) of a group list: the JAX package's
+  `make_collision_pairs` lists each pair's candidate contacts together,
+  group by group."""
+  g1 = [np.repeat(np.asarray(g.geom1, np.int64), g.ncon_per_pair)
+        for g in groups]
+  g2 = [np.repeat(np.asarray(g.geom2, np.int64), g.ncon_per_pair)
+        for g in groups]
+  if not g1:
+    return np.zeros((0,), np.int64), np.zeros((0,), np.int64)
+  return np.concatenate(g1), np.concatenate(g2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +127,9 @@ class Option:
   integrator: int = EULER
   noslip_iterations: int = 0
   disableflags: int = 0
+  # contacts kept by the constraint rows (the deepest, when the candidates
+  # outnumber it): the task's `max_contact_points` numeric, else 32
+  max_contact_points: int = 32
 
   def replace(self, **kw) -> "Option":
     return dataclasses.replace(self, **kw)
@@ -154,7 +177,49 @@ def fluid_box(body_mass, body_inertia) -> np.ndarray:
 
 DEVICE_MASKS = ("subtree_mask", "body_dof_mask", "dof_pred_mask",
                 "dof_cdofdot_zero", "dof_ancestor_mask")
-DEVICE_INDICES = ("body_rootid", "site_bodyid", "dof_bodyid", "dof_jntid")
+DEVICE_INDICES = ("body_rootid", "site_bodyid", "dof_bodyid", "dof_jntid",
+                  "geom_bodyid")
+
+
+# minimum condim at which friction axis a (t1, t2, torsion, roll1, roll2)
+# exists (condim in {1, 3, 4, 6})
+AXIS_MIN_CONDIM = (3, 3, 4, 6, 6)
+
+
+def _contact_tables(kw: dict, fields: dict, pairs, dev, device) -> dict:
+  """Device constants of the candidate contacts: each pair group's geom
+  index vectors (`coll_groups`), and per candidate its solver parameters,
+  its two bodies and their summed translational invweight0."""
+  if pairs is None or pairs.ncon == 0:
+    return dict(coll_groups=[])
+
+  def index(x):
+    return torch.as_tensor(np.array(x, dtype=np.int64)).to(device)
+
+  def flags(x):
+    return torch.as_tensor(np.array(x, dtype=bool)).to(device)
+
+  bodyid = np.asarray(kw["geom_bodyid"])
+  b1, b2 = bodyid[pairs.con_geom1], bodyid[pairs.con_geom2]
+  invw0 = np.asarray(fields["body_invweight0"], np.float32)[:, 0]
+  # friction axes (t1, t2, torsion, roll1, roll2) a contact's condim
+  # reaches; a condim-1 contact rides axis 0 as two pure normal rows
+  condim = np.asarray(pairs.con_condim)
+  namax = max(2, int(condim.max()) - 1)
+  axis_ok = condim[:, None] >= np.array(AXIS_MIN_CONDIM[:namax])[None, :]
+  c1_axis0 = (condim == 1)[:, None] & (np.arange(namax) == 0)[None, :]
+  return dict(
+      con_row_ok=flags(axis_ok | c1_axis0), con_c1_axis0=flags(c1_axis0),
+      con_is_c1=flags(condim == 1),
+      coll_groups=[(index(g.geom1), index(g.geom2)) for g in pairs.groups],
+      con_friction=dev(pairs.con_friction),
+      con_solref=dev(pairs.con_solref),
+      con_solimp=dev(pairs.con_solimp),
+      con_includemargin=dev(pairs.con_includemargin),
+      con_condim=index(pairs.con_condim),
+      con_body1=index(b1), con_body2=index(b2),
+      con_geom1=index(pairs.con_geom1), con_geom2=index(pairs.con_geom2),
+      con_invw=dev(invw0[b1] + invw0[b2]))
 
 
 def _device_tables(kw: dict, fields: dict, dev, device) -> dict:
@@ -315,7 +380,8 @@ class Model:
   # fluid model's `fluid_box` (nbody, 3), the joint transmissions' constant
   # moment matrix `trn_moment` (nu, nv) with `trn_qadr` / `trn_len_gear`,
   # the joint-limit rows' constants `lim_*` (two rows per limited joint),
-  # and two host booleans `has_damping` / `has_frictionloss`
+  # two host booleans `has_damping` / `has_frictionloss`, and the candidate
+  # contacts' constants (`_contact_tables`)
   dev: Any = None
   # how the pipeline physics solves its SPD systems (physics/smooth.py
   # spd_solve): "library" (the library Cholesky, differentiable: the
@@ -341,7 +407,8 @@ class Model:
     kw.update({k: dev(fields[k]) for k in MODEL_TENSORS})
     o = fields["opt"]
     opt = Option(**{k: dev(o[k]) for k in OPTION_TENSORS},
-                 **{k: int(o[k]) for k in OPTION_STATIC})
+                 **{k: int(o[k]) for k in OPTION_STATIC},
+                 max_contact_points=int(o.get("max_contact_points", 32)))
     cp = fields.get("collision_pairs")
     pairs = None
     if cp is not None:
@@ -351,15 +418,46 @@ class Model:
                     geom2=np.asarray(g["geom2"]),
                     ncon_per_pair=int(g["ncon_per_pair"]))
           for g in cp["groups"])
+      con_geom1, con_geom2 = contact_geoms(groups)
       pairs = CollisionPairs(
-          groups=groups, ncon=int(cp["ncon"]),
+          groups=groups, ncon=int(cp["ncon"]), con_geom1=con_geom1,
+          con_geom2=con_geom2,
           **{k: np.asarray(cp[k]) for k in (
               "con_condim", "con_friction", "con_solref", "con_solimp",
               "con_includemargin")})
     names = {k: list(v) for k, v in (fields.get("names") or {}).items()}
     tables = _device_tables(kw, fields, dev, device)
+    tables.update(_contact_tables(kw, fields, pairs, dev, device))
     return cls(opt=opt, collision_pairs=pairs, names=names, dev=tables,
                **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Contact:
+  """The selected candidate contacts of one state (the fields of the JAX
+  package's Contact that the pyramidal rows fill), k = min(ncon,
+  max_contact_points) of them."""
+  dist: torch.Tensor           # (k,)
+  pos: torch.Tensor            # (k, 3)
+  frame: torch.Tensor          # (k, 3, 3) rows: normal, tangent1, tangent2
+  includemargin: torch.Tensor  # (k,)
+  friction: torch.Tensor       # (k, 5)
+  solref: torch.Tensor         # (k, 2)
+  solimp: torch.Tensor         # (k, 5)
+  geom1_id: torch.Tensor       # (k,) int
+  geom2_id: torch.Tensor       # (k,) int
+  body1: torch.Tensor          # (k,) int
+  body2: torch.Tensor          # (k,) int
+  dim: torch.Tensor            # (k,) int, condim
+  mu_eff: torch.Tensor         # (k,) friction[0] / sqrt(impratio)
+  # contact-frame force (normal, tangent1, tangent2), decoded from the rows
+  # after the solve
+  force: torch.Tensor = None   # (k, 3)
+  cone: int = CONE_PYRAMIDAL
+  namax: int = 2               # friction axes built a contact
+
+  def replace(self, **kw) -> "Contact":
+    return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,6 +484,8 @@ class Data:
   xaxis: torch.Tensor = None
   site_xpos: torch.Tensor = None
   site_xmat: torch.Tensor = None
+  geom_xpos: torch.Tensor = None
+  geom_xmat: torch.Tensor = None
   subtree_com: torch.Tensor = None
   cinert: torch.Tensor = None         # (nbody, 10)
   cdof: torch.Tensor = None           # (nv, 6)
@@ -403,12 +503,15 @@ class Data:
   act_dot: torch.Tensor = None
   qfrc_smooth: torch.Tensor = None
   qacc_smooth: torch.Tensor = None
-  # constraint rows (joint limits)
+  # constraint rows (joint limits, then contacts)
+  contact: Contact = None
   efc_J: torch.Tensor = None
   efc_pos: torch.Tensor = None
   efc_solref: torch.Tensor = None
   efc_solimp: torch.Tensor = None
   efc_diag: torch.Tensor = None
+  efc_gate: torch.Tensor = None       # a row is active iff its gate < 0
+  efc_eq: torch.Tensor = None         # 1 on equality rows (none ported)
   efc_D: torch.Tensor = None
   efc_aref: torch.Tensor = None
   efc_force: torch.Tensor = None

@@ -7,8 +7,10 @@ The mass matrix is dense (nv x nv): robotics nv is small, and the dense
 form makes CRB one masked matrix product and the solves Cholesky solves.
 
 Ported for joint transmissions and the fixed/affine gain and bias types
-without activation states. Tendons, site transmissions and muscles are not
-ported yet: `check_supported` (physics/forward.py) refuses such models.
+without activation states; joint limits and pyramidal contacts add their
+forces through physics/constraint.py. Tendons, site transmissions and
+muscles are not ported yet: `check_supported` (physics/forward.py) refuses
+such models.
 """
 
 from __future__ import annotations

@@ -37,8 +37,8 @@ def make_planner(task, name: str, device="cuda"):
     from mujoco_mpc_tpu_torch.planners import cross_entropy
     return cross_entropy.CrossEntropyPlanner(task, device=device)
   if name == "Gradient":
-    raise NotImplementedError(
-        "the Gradient planner (planners/gradient.py) is not ported yet")
+    from mujoco_mpc_tpu_torch.planners import gradient
+    return gradient.GradientPlanner(task, device=device)
   if name == "iLQG":
     from mujoco_mpc_tpu_torch.planners import ilqg
     return ilqg.ILQGPlanner(task, device=device)

@@ -16,6 +16,14 @@ mjpc/trajectory.cc):
   * divergence (non-finite or > 1e7 state) poisons the rollout:
     total_return = 1e6;
   * total_return = sum(costs) / horizon.
+
+On a CUDA device a step of the pipeline physics is thousands of small
+operations, each a launch from the host. `GraphedBody` captures a function
+of one step over static buffers as a CUDA graph and replays it, once a
+step. `StepLoop` runs batched spline rollouts that way (the Gradient
+planner's line search), and the Gradient planner's forward and reverse
+passes (planners/gradient.py) are built on the same pieces
+(`spline_step`).
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ class Trajectory:
 # and recomputed every step
 CARRY_FIELDS = ("qpos", "qvel", "act", "ctrl", "time", "mocap_pos",
                  "mocap_quat", "userdata", "qfrc_applied", "xfrc_applied")
+# what a step of a clean rollout changes, and what it only reads
+CARRY_STATE = ("qpos", "qvel", "act", "ctrl", "time")
+CARRY_CONST = ("mocap_pos", "mocap_quat", "userdata", "qfrc_applied",
+               "xfrc_applied")
 
 
 def pack_state(d: Data) -> torch.Tensor:
@@ -154,6 +166,146 @@ def noisy_rollout(m: Model, residual_fn: Callable, cost_fn: Callable,
                         device=d0.xfrc_applied.device)
   return _trajectory(horizon, cost_fn, *_steps(
       m, residual_fn, policy_fn, d0, horizon, noise, rate, scale))
+
+
+class GraphedBody:
+  """`body()` — a function of no arguments that reads and writes static
+  tensors — as a CUDA graph on a CUDA device. The first call runs
+  `body()` once on a side stream (which also sets up the libraries its
+  operations use) and then captures it; every later call replays the
+  graph (the first call's effect is the side stream's run: a capture
+  runs nothing). On the CPU each call runs `body()`. A failed capture raises;
+  nothing runs in its place. The kernel wrappers count the launches a
+  replay makes themselves (ops/launches.py)."""
+
+  def __init__(self, body: Callable, device):
+    self.body = body
+    self.cuda = torch.device(device).type == "cuda"
+    self.graph = None
+
+  def __call__(self):
+    if not self.cuda:
+      self.body()
+      return
+    if self.graph is not None:
+      self.graph.replay()
+      return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+      self.body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+      self.body()
+    self.graph = graph
+
+
+def spline_step(m: Model, residual_fn_with_params: Callable, interp: int):
+  """One step of a clean spline rollout on one Data, as functions of
+  tensors (what `vmap`, `torch.func.vjp` and a graph capture trace):
+
+    step(state, values, t0, dt, params, consts) -> (state', residual,
+        diverged)
+    final(state, params, consts) -> (residual, diverged)
+
+  `state` is the CARRY_STATE tuple, `consts` the CARRY_CONST fields by
+  name; `step` samples the spline (values, t0, dt) at the state's time,
+  clips, runs forward, records the residual and integrates (the state's
+  ctrl becomes the applied control), as `rollout` does; `final` is the
+  closing forward pass."""
+  lo = m.actuator_ctrlrange[:, 0]
+  hi = m.actuator_ctrlrange[:, 1]
+
+  def data(state, consts):
+    return Data(**dict(zip(CARRY_STATE, state)), **consts)
+
+  def step(state, values, t0, dt, params, consts):
+    d = data(state, consts)
+    pol = spline_lib.SplinePolicy(t0=t0, dt=dt, values=values, interp=interp)
+    u = torch.minimum(torch.maximum(spline_lib.sample(pol, d.time), lo), hi)
+    d = F.forward(m, d.replace(ctrl=u))
+    r = residual_fn_with_params(m, d, params)
+    d = F.integrate(m, d)
+    return (d.qpos, d.qvel, d.act, u, d.time), r, _diverged(d)
+
+  def final(state, params, consts):
+    d = F.forward(m, data(state, consts))
+    return residual_fn_with_params(m, d, params), _diverged(d)
+
+  return step, final
+
+
+class StepLoop:
+  """B clean spline rollouts over the horizon as one function of one
+  batched step (`torch.func.vmap` of `spline_step`) over static buffers,
+  run H-1 times and closed by the final forward pass: on a CUDA device
+  each is a `GraphedBody` (captured at the first call, replayed after;
+  captured anew when the shapes change). The step index lives on the
+  device, so no step reads anything back to the host. Returns
+  (residuals (B, T, nr), failure (B,))."""
+
+  def __init__(self, m: Model, residual_fn_with_params: Callable,
+               horizon: int, interp: int):
+    self.m, self.horizon = m, horizon
+    self.step_fn, self.final_fn = spline_step(m, residual_fn_with_params,
+                                              interp)
+    self.key = None
+
+  def _setup(self, values, t0, dt, d0, params):
+    b = values.shape[0]
+    dev = values.device
+    self.buf = dict(values=values.clone(), t0=t0.clone(), dt=dt.clone(),
+                    params=params.clone())
+    self.consts = {f: getattr(d0, f).clone() for f in CARRY_CONST}
+    self.state = [getattr(d0, f)[None].repeat(b, *([1] * getattr(
+        d0, f).dim())).clone() for f in CARRY_STATE]
+    r, _ = self.final_fn(tuple(getattr(d0, f) for f in CARRY_STATE),
+                         params, self.consts)
+    self.residuals = torch.zeros((b, self.horizon, r.shape[-1]),
+                                 dtype=r.dtype, device=dev)
+    self.fails = torch.zeros((b, self.horizon), dtype=torch.bool,
+                             device=dev)
+    self.t = torch.zeros((1,), dtype=torch.long, device=dev)
+    self.step = GraphedBody(self._step_body, dev)
+    self.final = GraphedBody(self._final_body, dev)
+
+  def _step_body(self):
+    bf = self.buf
+    new, r, bad = torch.func.vmap(
+        self.step_fn, in_dims=(0, 0, None, None, None, None))(
+            tuple(self.state), bf["values"], bf["t0"], bf["dt"],
+            bf["params"], self.consts)
+    self.residuals.index_copy_(1, self.t, r[:, None])
+    self.fails.index_copy_(1, self.t, bad[:, None])
+    for buf, x in zip(self.state, new):
+      buf.copy_(x)
+    self.t.add_(1)
+
+  def _final_body(self):
+    r, bad = torch.func.vmap(self.final_fn, in_dims=(0, None, None))(
+        tuple(self.state), self.buf["params"], self.consts)
+    self.residuals[:, -1].copy_(r)
+    self.fails[:, -1].copy_(bad)
+
+  def __call__(self, values, t0, dt, d0, params):
+    key = (tuple(values.shape), tuple(params.shape)) + tuple(
+        tuple(getattr(d0, f).shape) for f in CARRY_FIELDS)
+    if key != self.key:
+      self._setup(values, t0, dt, d0, params)
+      self.key = key
+    for name, x in (("values", values), ("t0", t0), ("dt", dt),
+                    ("params", params)):
+      self.buf[name].copy_(x)
+    for f in CARRY_CONST:
+      self.consts[f].copy_(getattr(d0, f))
+    for buf, f in zip(self.state, CARRY_STATE):
+      buf.copy_(getattr(d0, f)[None].expand_as(buf))
+    self.t.zero_()
+    for _ in range(self.horizon - 1):
+      self.step()
+    self.final()
+    return self.residuals.clone(), self.fails.any(dim=1)
 
 
 def make_batched_returns(m: Model, residual_fn: Callable, cost_spec,

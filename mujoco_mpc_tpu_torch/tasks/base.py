@@ -63,6 +63,12 @@ class Task:
       self.plan_model = self.plan_model.replace(
           opt=self.plan_model.opt.replace(timestep=torch.tensor(
               agent_dt, dtype=torch.float32, device=device)))
+    # the constraint rows keep the `max_contact_points` deepest candidate
+    # contacts (the JAX package's put_model reads the same numeric)
+    max_contacts = int(self.config("max_contact_points", 32))
+    self.model, self.plan_model = (
+        model.replace(opt=model.opt.replace(max_contact_points=max_contacts))
+        for model in (self.model, self.plan_model))
     self.cost_spec = self.default_cost_spec()
     self.residual_params = torch.as_tensor(
         np.array(record["residual_params"], np.float32)).to(device)

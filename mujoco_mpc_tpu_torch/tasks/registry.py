@@ -20,6 +20,7 @@ _TASK_MODULES = [
     ("rubik", ["Rubik", "CubeSolving"]),
     ("swimmer", ["Swimmer"]),
     ("tracking", ["HumanoidTracking"]),
+    ("walker", ["Walker"]),
 ]
 
 

@@ -8,7 +8,10 @@ keyframes and the custom numerics/texts. This script compiles the tasks
 with the JAX package (which uses `mujoco` as the MJCF compiler) and writes
 those records:
 
-    JAX_PLATFORMS=cpu python scripts/export_torch_assets.py
+    JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [TASK ...]
+
+(every task, or only those named; a record written anew differs in its
+zip timestamps even where its arrays are the same).
 
 `build_record(name)` returns the record without writing it;
 tests/test_torch_model_convert.py holds the committed files equal to it.
@@ -35,6 +38,7 @@ ASSETS = {
     "Rubik": "rubik.npz",
     "Cube Solving": "cube_solving.npz",
     "Hand Reorient": "hand_reorient.npz",
+    "Walker": "walker.npz",
 }
 
 
@@ -78,7 +82,9 @@ def build_record(name: str) -> dict:
 def main():
   from mujoco_mpc_tpu_torch import convert
   from mujoco_mpc_tpu_torch.tasks import base
-  for name, fname in ASSETS.items():
+  names = sys.argv[1:] or list(ASSETS)
+  for name in names:
+    fname = ASSETS[name]
     path = os.path.join(base.ASSET_DIR, fname)
     np.savez_compressed(path, **convert.record_to_npz(build_record(name)))
     print(f"{name}: {os.path.normpath(path)} "

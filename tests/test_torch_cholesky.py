@@ -113,3 +113,30 @@ def test_cuda_kernel_matches_plain_on_the_card(n, k):
   assert tcholesky.launch_count == before + 1
   want = tcholesky.chol_solve_lanes_plain(a_lane, b_lane)
   torch.testing.assert_close(x, want, atol=TOL, rtol=TOL)
+
+
+def test_launch_counts_captured_launches_on_the_device(monkeypatch):
+  """The launch count rule every kernel wrapper follows (ops/launches.py):
+  an eager launch counts on the host and makes the device's tally; a
+  launch under a graph capture adds nothing on the host and records one
+  add to the tally instead (here a capture is simulated on a CPU tally:
+  the add happens at once, where a replay would make it); a capture before
+  any eager launch raises."""
+  from mujoco_mpc_tpu_torch.ops import launches
+
+  dev = torch.device("cpu", 0)
+  tallies = {}
+  capturing = [False]
+  monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                      lambda: capturing[0])
+  capturing[0] = True
+  with pytest.raises(RuntimeError, match="before its first eager launch"):
+    launches.count(tallies, dev)
+  capturing[0] = False
+  assert launches.count(tallies, dev) == 1
+  assert launches.replays(tallies) == 0
+  capturing[0] = True
+  assert [launches.count(tallies, dev) for _ in range(3)] == [0, 0, 0]
+  assert launches.replays(tallies) == 3
+  launches.zero(tallies)
+  assert launches.replays(tallies) == 0

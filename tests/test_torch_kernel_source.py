@@ -43,7 +43,7 @@ from tests import models as tm
 from tests.torch_port_helpers import (BALL, DROP, DROP_GEOMS, LIMITED,
                                       MIXED_CONTACTS, PAIR_GEOMS, clearances,
                                       models_from_xml, pair_states, pair_xml,
-                                      riccati_problem)
+                                      pressed_state, riccati_problem)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-7
@@ -567,6 +567,62 @@ def test_cuda_source_swimmer_cost_sums_with_fluid_matches_plain(tmp_path):
   want = kern.plain(qpos.contiguous(), qvel, values, aux)
   got = [torch.zeros_like(w) for w in want]
   _run_host(kern, got, qpos.contiguous(), qvel, values, aux, tmp_path)
+  for g, w in zip(got, want):
+    assert torch.isfinite(w).all()
+    torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("feedback", [False, True])
+def test_cuda_source_walker_matches_plain(feedback, tmp_path):
+  """Walker's builds (residual_walker.cuh: ctrl, torso height, uprightness,
+  the com's forward speed from cvel): cost sums at its sampling layout and
+  the iLQG feedback mode, 6 steps from poses pressed into the floor (14
+  capsule-end ground points, 6 limited joints)."""
+  pt = tregistry.get_task("Walker", device="cpu")
+  m = pt.plan_model
+  spec = pt.lane_residual_spec()
+  cs = pt.cost_spec
+  horizon, p, k = 6, 2, 4
+  if feedback:
+    kern = tstep.build_rollout_kernel(
+        m, horizon, 1, residual=spec, naux=spec["naux"], record_states=True,
+        feedback=True, _table_float=np.float64)
+  else:
+    kern = tstep.build_rollout_kernel(
+        m, horizon, p, residual=spec, naux=spec["naux"], record_states=False,
+        cost_terms=tuple(zip(cs.norm_types, cs.dims)),
+        _table_float=np.float64)
+  defs = kern.build_defines()
+  assert (defs["LR_NCON"], defs["LR_NU"]) == (14, 6)
+  assert "residual_walker.cuh" in str(defs["RESIDUAL_HEADER"])
+  rng = np.random.default_rng(12)
+  states = [pressed_state(pt, 50 + i, depth=0.003, qvel_scale=0.3)
+            for i in range(k)]
+  qpos = torch.as_tensor(np.stack([s[0] for s in states], 1)).double()
+  qvel = torch.as_tensor(np.stack([s[1] for s in states], 1)).double()
+  aux = spec["make_aux"](pt.make_data(), pt.residual_params).double()
+  if feedback:
+    nx, nu = 2 * m.nv, m.nu
+    values = torch.as_tensor(np.stack([rng.uniform(0, 1, k),
+                                       rng.uniform(0, 1, k)]))
+    blocks = torch.cat([
+        torch.as_tensor(rng.uniform(-0.5, 0.5, (horizon, nu))),
+        torch.as_tensor(0.1 * rng.standard_normal((horizon, nu))),
+        torch.as_tensor(0.05 * rng.standard_normal((horizon, nu * nx))),
+        torch.cat([qpos[:, :1].T, qvel[:, :1].T], 1).repeat(horizon, 1)],
+        dim=1).reshape(-1).contiguous()
+    aux = aux[:, None].repeat(1, k).contiguous()
+    want = kern.plain(qpos, qvel, values, aux, blocks)
+    got = torch.zeros_like(want)
+    _run_host(kern, [got], qpos, qvel, values, aux, tmp_path, table=blocks)
+    want, got = (want,), (got,)
+  else:
+    aux = torch.cat([aux, cs.norm_params[:, :2].reshape(-1).double()])
+    aux = aux[:, None].repeat(1, k).contiguous()
+    values = torch.as_tensor(rng.uniform(-1, 1, (p * m.nu, k)))
+    want = kern.plain(qpos, qvel, values, aux)
+    got = [torch.zeros_like(w) for w in want]
+    _run_host(kern, got, qpos, qvel, values, aux, tmp_path)
   for g, w in zip(got, want):
     assert torch.isfinite(w).all()
     torch.testing.assert_close(g, w, atol=TOL, rtol=TOL)

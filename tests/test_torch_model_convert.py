@@ -22,7 +22,7 @@ from tests.torch_port_helpers import to_np
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 TASKS = ["Quadruped Flat", "Cartpole", "Swimmer", "Humanoid Stand",
          "Humanoid Walk", "Humanoid Track", "Quadrotor", "Rubik",
-         "Cube Solving", "Hand Reorient"]
+         "Cube Solving", "Hand Reorient", "Walker"]
 
 
 def _exporter():
@@ -170,9 +170,9 @@ def test_task_from_record_and_data_from_numpy():
   assert tregistry.task_names() == [
       "Cartpole", "Cube Solving", "Hand Reorient", "Humanoid Stand",
       "Humanoid Track", "Humanoid Walk", "Quadrotor", "Quadruped Flat",
-      "Rubik", "Swimmer"]
+      "Rubik", "Swimmer", "Walker"]
   with pytest.raises(KeyError):
-    tregistry.get_task("Walker", device="cpu")
+    tregistry.get_task("Acrobot", device="cpu")
 
 
 def test_entry_points_raise_without_the_requested_device():
@@ -242,7 +242,8 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
       "lane_math.cuh", "lane_rollout.cu", "lane_team.cuh", "residual_hand.cuh",
       "residual_humanoid.cuh", "residual_none.cuh", "residual_quadrotor.cuh",
       "residual_quadruped.cuh", "residual_rubik.cuh", "residual_swimmer.cuh",
-      "residual_tracking.cuh", "riccati_backward.cu", "score_fused.cu"]
+      "residual_tracking.cuh", "residual_walker.cuh", "riccati_backward.cu",
+      "score_fused.cu"]
   for name in os.listdir(csrc):
     with open(os.path.join(csrc, name)) as f:
       text = f.read()

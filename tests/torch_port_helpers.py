@@ -174,6 +174,21 @@ def riccati_problem(horizon, ndx, nu, seed, tight_limits):
   return a, b, cx, cu, cxx, cxu, cuu, lo, hi
 
 
+def pressed_state(pt, seed, depth=0.004, qvel_scale=0.5):
+  """(qpos, qvel, ctrl) of a planar walker task `pt` (Walker): random
+  joint angles, the lowest ground point of the rollout kernel's contact
+  points `depth` into the floor, a random velocity and control."""
+  from mujoco_mpc_tpu_torch.ops import step_lane
+  rng = np.random.default_rng(seed)
+  m = pt.plan_model
+  qpos = np.asarray(pt.home_qpos, np.float32).copy()
+  qpos[2:] += 0.25 * rng.standard_normal(m.nq - 2).astype(np.float32)
+  qpos[1] -= step_lane.contact_clearance(m, qpos) + depth
+  qvel = (qvel_scale * rng.standard_normal(m.nv)).astype(np.float32)
+  ctrl = rng.uniform(-1, 1, m.nu).astype(np.float32)
+  return qpos, qvel, ctrl
+
+
 def clearances(pm, qpos) -> np.ndarray:
   """(K,) lowest clearance of the rollout kernel's ground contact points
   for each column of qpos (numpy)."""
