@@ -93,7 +93,7 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      then `rubik_path` (BASELINE config 5: Rubik, K=512, H=16, P=3, 10
      chained iterations), `cube_solving_path` and `hand_reorient_path` (the
      same K and H) on the lane planner;
-  9. after phases 10 and 11, prints one JSON line describing every kernel
+  9. after phases 10, 11 and 12, prints one JSON line describing every kernel
      (the rollout kernel by build: main path, feedback, humanoid track,
      humanoid stand, site, rubik, cube solving, hand reorient, the agent
      paths' cartpole states, swimmer cost sums and swimmer feedback at
@@ -143,7 +143,28 @@ Needs one NVIDIA GPU (built for Hopper, sm_90a) and the CUDA toolkit's
      build held on the path's last launch, per candidate beside the nudged
      plain witness, and its states build step by step over the horizon).
      `python3 chip_smoke.py --only contact_gradient_paths` runs this phase
-     alone.
+     alone;
+ 12. `estimator_paths` — the estimators and the Direct optimizer on
+     Cartpole: `agent_cartpole_ekf` and `agent_cartpole_ukf` (the loop of
+     tests/test_agent_estimator.py: `Agent(Cartpole, "Sampling",
+     estimator=..., sensor_noise=0.01)`, 500 steps, two plans every 4
+     steps; the estimation error's mean over the last 50 steps below 0.3,
+     the pole's Vertical residual below 1.2 in size; each filter update
+     one CUDA graph, the UKF's sigma points stepped with B4 at (2, 9);
+     after the loop 10 updates timed on the host clock, 10 on the device
+     (profiler; CUDA events beside it), the host syncs of one, the
+     realtime factor), B1's states build (10, 101) held to its plain
+     version on the path's last launch, B3 on the path's last scoring
+     inputs, B4 on the UKF graph's own inputs; `batch_cartpole` (the Batch
+     estimator at its default window and at 32, filled, then 10 updates
+     timed on the host and 10 on the device; the final qpos error below
+     0.1) and `direct_cartpole` (Direct at T=32, banded, on a noisy
+     recorded window: ms an optimize, iterations, status, the cost before
+     and after, asserted lower, and the qpos error under half the noisy
+     start's). Batch and Direct run the Gauss-Newton loop on the host: one
+     CUDA graph an iteration, replayed while the loop's condition holds,
+     which is read back once an iteration (the host syncs printed).
+     `python3 chip_smoke.py --only estimator_paths` runs this phase alone.
 
 Any failure raises, so the process exits non-zero. Nothing here imports
 JAX or the JAX package.
@@ -151,6 +172,7 @@ JAX or the JAX package.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -307,10 +329,38 @@ WITNESS_NUDGES = 4
 TOL_WITNESS_RATIO = 0.1
 # the torso (a capsule of radius 0.07 m) stays above this height (m)
 TORSO_FLOOR = 0.03
+# phase 12: the filters in the Cartpole agent loop (tests/
+# test_agent_estimator.py's loop: 500 steps, two plans every 4 steps,
+# sensor noise 0.01), its bars (the estimation error's mean over the last
+# 50 steps, the pole's Vertical residual), and the updates timed after it
+FILTER_STEPS, FILTER_PLANS, FILTER_TAIL = 500, 2, 50
+FILTER_ERR_BAR, VERTICAL_BAR = 0.3, 1.2
+TIMED_UPDATES = 10
+# Batch at its default window and at BASELINE's 32, filled, then timed
+# (TIMED_UPDATES on the host clock, DEVICE_UPDATES on the device: a
+# profile of one holds tens of thousands of kernels); Direct at T=32
+# (banded); the JAX suite's bars: the Batch qpos error below 0.1 at the
+# end, Direct's cost lower and its qpos error under half the noisy start's
+BATCH_LENGTHS, BATCH_ERR_BAR, DEVICE_UPDATES = (None, 32), 0.1, 1
+DIRECT_HORIZON, DIRECT_NOISE, DIRECT_REPS = 32, 0.05, 5
 
 
 def emit(phase, **kw):
   print(json.dumps(dict(phase=phase, **kw)), flush=True)
+
+
+# wall seconds of each phase of a whole run, in the order run
+PHASE_SECONDS = {}
+_PHASE = [None, time.perf_counter()]
+
+
+def phase_mark(name):
+  """Close the phase running (its wall seconds into PHASE_SECONDS) and
+  start `name` (None: none)."""
+  now = time.perf_counter()
+  if _PHASE[0] is not None:
+    PHASE_SECONDS[_PHASE[0]] = round(now - _PHASE[1], 1)
+  _PHASE[:] = [name, now]
 
 
 def card_line():
@@ -573,15 +623,19 @@ def graph_launch_ms(fn, launches=50, reps=20):
 
   count = launch_counts.count
   launch_counts.count = lambda replay_counts, device: 0
+  collecting = gc.isenabled()
   try:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    gc.disable()      # a graph collected during a capture invalidates it
     with torch.cuda.graph(graph):
       for _ in range(launches):
         fn()
   finally:
     launch_counts.count = count
+    if collecting:
+      gc.enable()
   graph.replay()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
@@ -825,6 +879,35 @@ def build_twinned(task, horizon, p, **kw):
   return kern
 
 
+class OnHost:
+  """A twinned build's plain version (`build_twinned`, or a `twin` set
+  beside the build) run on the twin, on the host's CPU: the arguments go
+  to the host, the results come back to the arguments' device. At K of a
+  few hundred its thousands of small operations a step take a quarter to
+  a half of the time there that they take as launches on the card (at
+  K=4096 the card is the faster)."""
+
+  def __init__(self, kern):
+    assert kern.twin.build_defines() == kern.build_defines()
+    self.twin = kern.twin
+
+  def _run(self, fn, args):
+    dev = next(a.device for a in args if torch.is_tensor(a))
+    out = fn(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    if isinstance(out, tuple):
+      return tuple(o.to(dev) for o in out)
+    return out.to(dev)
+
+  def plain(self, *args):
+    return self._run(self.twin.plain, args)
+
+  def step_array(self, *args):
+    return self._run(self.twin.step_array, args)
+
+  def residual_array(self, *args):
+    return self._run(self.twin.residual_array, args)
+
+
 def cost_sums_check(kern, task, spec, d0, values, horizon):
   """One cost-sum launch of `kern` from d0's state on every candidate of
   `values`, held against the plain version on the same inputs: the returns
@@ -964,13 +1047,11 @@ def ground_site_aux_builds(device):
       ("quadrotor_states", rotor, r_spec, r_cfg.horizon,
        r_cfg.num_spline_points, True)):
     terms = tuple(zip(task.cost_spec.norm_types, task.cost_spec.dims))
-    if states:
-      kernels[name] = step_lane.build_rollout_kernel(
-          task.plan_model, hor, p, residual=spec, naux=spec["naux"],
-          record_states=True)
-    else:
-      kernels[name] = build_twinned(task, hor, p, naux=spec["naux"],
-                                    record_states=False, cost_terms=terms)
+    # every build twinned: the checks run their plain versions on the
+    # host's CPU (OnHost)
+    kernels[name] = build_twinned(
+        task, hor, p, naux=spec["naux"], record_states=states,
+        cost_terms=None if states else terms)
   return tasks, kernels
 
 
@@ -1030,7 +1111,8 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   start = max(range(HORIZON_HUMANOID - HUMANOID_CHECK_STEPS),
               key=lambda s_: sum(capsule[s_:s_ + HUMANOID_CHECK_STEPS]))
   window = range(start, start + HUMANOID_CHECK_STEPS)
-  row = step_by_step(kern, rec, values, aux, p_h, nq, nv, gen, window)
+  row = step_by_step(OnHost(kern), rec, values, aux, p_h, nq, nv, gen,
+                     window)
   emit("kernels", case="humanoid_states_step_by_step", K=K_HUMANOID,
        H=HORIZON_HUMANOID, steps_checked=[window.start, window.stop],
        active_rows={key: sum(rows[t].get(key, 0) for t in window)
@@ -1085,10 +1167,10 @@ def ground_site_aux(tasks, kernels, counters, card, device):
   q_aux = lane_aux(quad, q_spec, qd0, K_QUADROTOR_CHECK, None)
   q_args = (qp0.contiguous(), qv0.contiguous(), q_vals, q_aux)
   rec = kern(*q_args)
-  rec_p = kern.plain(*q_args)
+  rec_p = OnHost(kern).plain(*q_args)
   torch.cuda.synchronize()
-  q_row = step_by_step(kern, rec, q_vals, q_aux, q_cfg.num_spline_points,
-                       qm.nq, qm.nv, gen)
+  q_row = step_by_step(OnHost(kern), rec, q_vals, q_aux,
+                       q_cfg.num_spline_points, qm.nq, qm.nv, gen)
   emit("kernels", case="quadrotor_site_step_by_step", K=K_QUADROTOR_CHECK,
        H=q_cfg.horizon, z_min=float(rec[:, 2].min()),
        max_abs_err_full_rollout=float((rec - rec_p).abs().max()),
@@ -1168,11 +1250,28 @@ def body_pair_builds(device):
       variants = [("rubik_boxbox", m.replace(geom_size=size),
                    dict(select, body_pair_types=None), 2),
                   ("rubik_elliptic", elliptic, select, 2)]
+    # each states build's CPU twin: the same build of the task's CPU copy,
+    # its model changed the same way (OnHost runs the checks there)
+    cpu = registry.get_task(task.name, device="cpu")
+    cm = cpu.plan_model
+    twin_models = {key: cm}
+    if key == "rubik":
+      csize = cm.geom_size.clone()
+      csize[knobs] = BOXBOX_KNOB_HALF
+      twin_models = {"rubik_boxbox": cm.replace(geom_size=csize),
+                     "rubik_elliptic": cm.replace(opt=cm.opt.replace(
+                         cone=1, impratio=torch.tensor(10.0)))}
+    cspec = cpu.lane_residual_spec()
     for name, model, select_, horizon in variants:
       models[name] = (task, model, select_)
-      kernels[f"{name}_states"] = step_lane.build_rollout_kernel(
+      kern = step_lane.build_rollout_kernel(
           model, horizon, p, residual=spec, naux=spec["naux"],
           record_states=True, **select_)
+      kern.twin = step_lane.build_rollout_kernel(
+          twin_models[name], horizon, p, residual=cspec,
+          naux=cspec["naux"], record_states=True, **select_)
+      assert kern.twin.build_defines() == kern.build_defines(), name
+      kernels[f"{name}_states"] = kern
   return tasks, kernels, models
 
 
@@ -1244,15 +1343,16 @@ def body_states_check(kern, task, m, select, face_std, rng, gen, device,
   torch.cuda.synchronize()
   horizon = rec.shape[0]
   assert torch.equal(rec[0, :nq + nv], torch.cat(args[:2]))
+  host = OnHost(kern)
   t0 = time.perf_counter()
-  rec_p = kern.plain(*args)
+  rec_p = host.plain(*args)
   torch.cuda.synchronize()
   plain_ms = (time.perf_counter() - t0) * 1e3
   t0 = time.perf_counter()
   rows_p = []
   for t in range(horizon):
     node = min(int(t * p / max(horizon - 1, 1)), p - 1)
-    rows_p.append(kern.residual_array(rec[t, :nq], rec[t, nq:nq + nv],
+    rows_p.append(host.residual_array(rec[t, :nq], rec[t, nq:nq + nv],
                                       values[node * nu:(node + 1) * nu], t,
                                       aux))
   torch.cuda.synchronize()
@@ -1262,7 +1362,7 @@ def body_states_check(kern, task, m, select, face_std, rng, gen, device,
   ret_p = cs.cost(torch.stack(rows_p).movedim(1, -1)).mean(dim=0)
   ok = torch.isfinite(ret) & torch.isfinite(ret_p)
   rel = ((ret - ret_p).abs() / torch.clamp(ret_p.abs(), min=1.0))[ok]
-  steps = step_by_step(kern, rec, values, aux, p, nq, nv, gen,
+  steps = step_by_step(host, rec, values, aux, p, nq, nv, gen,
                        first=rec_p[1, :nq + nv])
   rows = {}
   for t in range(horizon - 1):
@@ -1277,8 +1377,8 @@ def body_states_check(kern, task, m, select, face_std, rng, gen, device,
              tol_return_rel=TOL_RETURN_REL, tol_share=TOL_RETURN_SHARE,
              nonfinite=int((~ok).sum()), residual_rows_plain_ms=rows_ms,
              kernel_ms=time_cuda(lambda: kern(*args), 5), plain_ms=plain_ms,
-             bytes=nb, flops=nf, bytes_ms=bytes_ms, ops_ms=ops_ms,
-             active_rows=rows, touching_candidates=touching,
+             plain_on="cpu", bytes=nb, flops=nf, bytes_ms=bytes_ms,
+             ops_ms=ops_ms, active_rows=rows, touching_candidates=touching,
              tol_qpos=TOL_STEP_QPOS, tol_qvel=TOL_STEP_QVEL, **steps)
   assert row["nonfinite"] <= TOL_NONFINITE_SHARE * k, row
   assert row["share_over_tol"] <= TOL_RETURN_SHARE, row
@@ -2039,6 +2139,342 @@ def eager_bodies():
     rollout.GraphedBody = graphed
 
 
+def device_total_ms(fn):
+  """Device milliseconds of one call of fn(): the summed durations of the
+  device kernels and copies it runs, from torch.profiler (the card's own
+  time, without the host's); None where the profiler shows no device
+  work. The profiler's raw records are read (a graph replay makes tens of
+  thousands, which its Python event tree takes seconds to build)."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  cuda = torch.autograd.DeviceType.CUDA
+  ns = [ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == cuda]
+  return sum(ns) / 1e6 if ns else None
+
+
+def event_ms(fn):
+  """Milliseconds between CUDA events recorded before and after one call
+  of fn() whose device work is one CUDA graph replay and a few copies (its
+  host enqueue is far shorter than the graph): the device's elapsed time,
+  gaps between the graph's nodes included."""
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end)
+
+
+def percentiles(xs):
+  xs = [x for x in xs if x is not None]
+  if not xs:
+    return dict(p50=None, p90=None)
+  return dict(p50=float(np.percentile(xs, 50)),
+              p90=float(np.percentile(xs, 90)))
+
+
+def timed_updates(update, n, n_device=None):
+  """Wall milliseconds of n calls of update() (each up to a synchronise),
+  then the device milliseconds of n_device (default n) more (profiler, and
+  CUDA events around each), and the synchronising calls of one more."""
+  n_device = n if n_device is None else n_device
+  wall = []
+  for _ in range(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update()
+    torch.cuda.synchronize()
+    wall.append((time.perf_counter() - t0) * 1e3)
+  dev = [device_total_ms(update) for _ in range(n_device)]
+  ev = [event_ms(update) for _ in range(n_device)]
+  _, syncs = count_syncs(update)
+  return dict(wall_ms=percentiles(wall), device_ms=percentiles(dev),
+              device_ms_events=percentiles(ev), host_syncs_per_update=syncs,
+              device_ms_from="profiler" if dev[0] is not None
+              else "not measured by the profiler")
+
+
+def cartpole_truth(task, n, seed, step):
+  """(states (n, 4), noisy sensors (n, 5), ctrls (n, 1), actuator forces
+  (n, 2)) of Cartpole from a swinging start under a smooth control: each
+  reading on a full forward pass (one CUDA graph) plus 0.01 N(0, 1), then
+  the step (`step`, the agent's step graph)."""
+  from mujoco_mpc_tpu_torch import rollout
+  from mujoco_mpc_tpu_torch.physics import forward as F
+  from mujoco_mpc_tpu_torch.physics import sensors
+
+  m = task.model
+  fn = sensors.make_sensor_fn(m)
+  rng = np.random.default_rng(seed)
+  d = d0 = task.make_data().replace(
+      qpos=torch.tensor([0.0, 2.0], device=m.qpos0.device))
+
+  def read(qpos, qvel, u):
+    df = F.forward(m, d0.replace(qpos=qpos, qvel=qvel, ctrl=u))
+    return torch.cat([qpos, qvel, fn(m, df), u, df.qfrc_actuator]),
+
+  reading = rollout.GraphedFn(read, m.qpos0.device)
+  ctrls = torch.tensor(0.3 * np.sin(0.2 * np.arange(n)), dtype=torch.float32,
+                       device=m.qpos0.device)[:, None]
+  rows = []
+  for t in range(n):
+    u = ctrls[t]
+    rows.append(reading(d.qpos, d.qvel, u)[0])
+    d = step(d.replace(ctrl=u))
+  rows = torch.stack(rows).cpu().numpy().astype(np.float64)
+  states, ys = rows[:, :4], rows[:, 4:9]
+  ys = ys + 0.01 * rng.standard_normal(ys.shape)
+  return states, ys, rows[:, 9:10], rows[:, 10:12]
+
+
+def chol_entry_row(pairs):
+  """B4 held to its plain version on every captured (a, b), and timed on
+  the first: the device time of a launch in a graph, the profiler's, the
+  plain version's and `torch.linalg.solve`'s, the bound."""
+  from mujoco_mpc_tpu_torch.ops import cholesky
+  errs = []
+  for a, b in pairs:
+    x = cholesky._launch(a, b)
+    xp = cholesky.chol_solve_lanes_plain(a, b)
+    torch.cuda.synchronize()
+    errs.append((float((x - xp).abs().max()), bool(
+        ((x - xp).abs() <= TOL_CHOL + TOL_CHOL * xp.abs()).all())))
+  a, b = (x.contiguous() for x in pairs[0])
+  n, k = b.shape
+  cb, co = chol_work(n, k)
+  am, bm = a.permute(2, 0, 1).contiguous(), b.T.contiguous()[..., None]
+  return dict(
+      n=n, K=k, systems_checked=len(pairs),
+      max_abs_err=max(e for e, _ in errs), within_tol=all(ok for _, ok in errs),
+      graph_ms=graph_launch_ms(lambda: cholesky._launch(a, b)),
+      device_ms=device_ms(lambda: cholesky._launch(a, b), 50,
+                          "chol_solve_lanes"),
+      plain_ms=host_ms(lambda: cholesky.chol_solve_lanes_plain(a, b)),
+      library_ms=time_cuda(lambda: torch.linalg.solve(am, bm), 20),
+      layout=cholesky.layout(n), bytes=cb, flops=co,
+      bytes_ms=cb / H100_BYTES_PER_S * 1e3, ops_ms=co / H100_F32_FLOPS * 1e3)
+
+
+def score_entry_row(res, cs):
+  """B3 held to its plain version on a path's own captured (T, nr, K)
+  residuals, and timed there (as phase 11's line-search check)."""
+  from mujoco_mpc_tpu_torch.ops import scoring
+  got = scoring._launch(res, cs)
+  want = scoring.score_reference(res.permute(2, 0, 1), cs)
+  err = float((got - want).abs().max())
+  ok = bool(((got - want).abs() <= TOL_SCORE + TOL_SCORE *
+             want.abs()).all())
+  sb, so = score_work(cs, res.shape[0], res.shape[2])
+  return dict(
+      T=res.shape[0], nr=res.shape[1], K=res.shape[2], max_abs_err=err,
+      within_tol=ok, graph_ms=graph_launch_ms(lambda: scoring._launch(res,
+                                                                      cs)),
+      device_ms=device_ms(lambda: scoring._launch(res, cs), 50,
+                          "score_fused"),
+      plain_ms=host_ms(lambda: scoring.score_reference(
+          res.permute(2, 0, 1), cs)),
+      bytes=sb, flops=so, bytes_ms=sb / H100_BYTES_PER_S * 1e3,
+      ops_ms=so / H100_F32_FLOPS * 1e3)
+
+
+def kernel_entry(name, source, replaces, launches_by_path, row, shape):
+  return dict(
+      name=name, route="cuda", source="mujoco_mpc_tpu_torch/ops/csrc/" +
+      source, replaces=replaces,
+      launches=sum(launches_by_path.values()),
+      launches_by_path=launches_by_path, max_abs_err=row["max_abs_err"],
+      ms=row["graph_ms"], device_ms=row["device_ms"],
+      plain_ms=row["plain_ms"],
+      bound_ms=max(row["bytes_ms"], row["ops_ms"]),
+      bound_by="bytes" if row["bytes_ms"] >= row["ops_ms"]
+      else "operations", library_ms=row.get("library_ms"), shape=shape)
+
+
+def estimator_paths(counters, path_launches, card, device):
+  """Phase 12: the estimators and the Direct optimizer on Cartpole. The
+  EKF and the UKF in the agent loop (the lane planner planning from the
+  filter's state; each filter update one CUDA graph, the UKF's sigma
+  points stepped on B4), Batch at its default window and at 32, Direct at
+  T=32 (banded). Adds each path's launches to `path_launches` and returns
+  the summary entries of B1, B3 and B4 held to their plain versions at the
+  phase's own shapes."""
+  from mujoco_mpc_tpu_torch.agent.agent import Agent
+  from mujoco_mpc_tpu_torch.rollout import StepGraph
+  from mujoco_mpc_tpu_torch.direct.optimizer import Direct
+  from mujoco_mpc_tpu_torch.estimators.batch import Batch
+  from mujoco_mpc_tpu_torch.tasks import registry
+
+  t_phase = time.perf_counter()
+  entries, captured_score, captured_chol = [], None, []
+  seconds = {}
+  inputs = gradient_kernel_inputs()
+  records = {}
+  for case, est_name in (("agent_cartpole_ekf", "Kalman"),
+                         ("agent_cartpole_ukf", "Unscented")):
+    records.clear()
+    with recording_rollouts(records), inputs() as seen:
+      seen["chol"].clear()
+      seen["score"].clear()
+      cart = registry.get_task("Cartpole", device=device)
+      agent = Agent(cart, planner="Sampling", seed=1, estimator=est_name,
+                    sensor_noise=0.01)
+      assert agent.routes["planner"] == "LaneSamplingPlanner", agent.routes
+      zero_counts(counters)
+      errs = []
+      t0 = time.perf_counter()
+      for t in range(FILTER_STEPS):
+        if t % AGENT_STEPS_PER_PLAN == 0:
+          for _ in range(FILTER_PLANS):
+            agent.plan_iteration()
+        agent.step_env()
+        true_x = torch.cat([agent.data.qpos, agent.data.qvel])
+        errs.append(torch.linalg.vector_norm(
+            agent.estimator.state_tensor[:4] - true_x))
+      errs = torch.stack(errs).cpu().numpy()
+      loop_s = time.perf_counter() - t0
+      launches = read_counts(counters)
+      vertical = float(cart.residual(cart.model, agent.data,
+                                     cart.residual_params)[0])
+      path_launches[case] = launches
+      if est_name == "Unscented":
+        captured_chol = [(a, b) for a, b in seen["chol"]]
+      captured_score = seen["score"][-1]
+    u = agent.data.ctrl
+    timing = timed_updates(lambda: agent._feed_estimator(u), TIMED_UPDATES)
+    tail = float(np.mean(errs[-FILTER_TAIL:]))
+    plans = FILTER_STEPS // AGENT_STEPS_PER_PLAN * FILTER_PLANS
+    seconds[case] = time.perf_counter() - t0
+    emit(case, task="Cartpole", estimator=est_name, K=10, H=101,
+         steps=FILTER_STEPS, plans=plans, sensor_noise=0.01,
+         estimation_error_tail_mean=tail, bar=FILTER_ERR_BAR,
+         estimation_error_max=float(errs.max()), vertical=vertical,
+         vertical_bar=VERTICAL_BAR, loop_s=loop_s,
+         realtime_factor=FILTER_STEPS * agent.timestep / loop_s,
+         filter_update=timing, launches=launches, routes=agent.routes,
+         card=card)
+    assert np.isfinite(errs).all() and tail < FILTER_ERR_BAR, tail
+    assert abs(vertical) < VERTICAL_BAR, vertical
+    assert launches["rollout"] == plans and launches["scoring"] == plans, \
+        launches
+    assert launches["riccati"] == 0, launches
+    if est_name == "Kalman":
+      assert launches["cholesky"] == 0, launches
+      (recorded,) = records.values()
+      row = recorded_check("agent_cartpole_ekf_states", recorded, cart, card)
+    else:
+      # the sigma points' SPD solves: B4 at (nv, 2 ndx + 1), every update
+      assert launches["cholesky"] >= FILTER_STEPS, launches
+      assert captured_chol and all(
+          tuple(b.shape) == (2, 9) for _, b in captured_chol), \
+          [tuple(b.shape) for _, b in captured_chol]
+  filter_paths = ("agent_cartpole_ekf", "agent_cartpole_ukf")
+  entries.append(dict(
+      rollout_entry("cartpole_states[estimator_paths]", row,
+                    "agent_cartpole_ekf", path_launches,
+                    shape=dict(K=10, H=101)),
+      launches=sum(path_launches[k]["rollout"] for k in filter_paths),
+      launches_by_path={k: path_launches[k]["rollout"]
+                        for k in filter_paths}))
+  score_row = score_entry_row(*captured_score)
+  chol_row = chol_entry_row(captured_chol)
+  emit("estimator_paths", case="kernels_on_the_paths_inputs",
+       score_fused=score_row, chol_solve_lanes=chol_row,
+       tol_score=TOL_SCORE, tol_chol=TOL_CHOL, card=card)
+  assert score_row["within_tol"] and chol_row["within_tol"], (score_row,
+                                                             chol_row)
+  assert (score_row["K"], score_row["T"]) == (10, 101), score_row
+  entries.append(kernel_entry(
+      "scoring.score_fused[estimator_paths]", "score_fused.cu",
+      "mujoco_mpc_tpu/ops/scoring.py:47",
+      {k: path_launches[k]["scoring"] for k in filter_paths}, score_row, dict(K=10, T=101)))
+  entries.append(kernel_entry(
+      "cholesky.chol_solve_lanes[estimator_paths]", "chol_solve_lanes.cu",
+      "mujoco_mpc_tpu/ops/cholesky.py:66",
+      dict(agent_cartpole_ukf=path_launches["agent_cartpole_ukf"][
+          "cholesky"]), chol_row, dict(n=2, K=9)))
+
+  # Batch: a recorded noisy Cartpole run, the filter started off the truth
+  cart = registry.get_task("Cartpole", device=device)
+  step = StepGraph(cart.model)
+  for length in BATCH_LENGTHS:
+    t0 = time.perf_counter()
+    zero_counts(counters)
+    est = Batch(cart, configuration_length=length)
+    # the window, then timed_updates' n + 2 n_device + 1
+    n = est.cfg_len + TIMED_UPDATES + 2 * DEVICE_UPDATES + 1
+    states, ys, ctrls, _ = cartpole_truth(cart, n + 1, SEED + length
+                                          if length else SEED, step)
+    x0 = states[0].copy()
+    x0[:2] += 0.2 * np.random.default_rng(SEED).standard_normal(2)
+    est.set_state(x0)
+    t = 1
+    for _ in range(est.cfg_len):
+      est.update(ctrls[t], ys[t])
+      t += 1
+
+    def update():
+      nonlocal t
+      est.update(ctrls[t], ys[t])
+      t += 1
+
+    timing = timed_updates(update, TIMED_UPDATES, DEVICE_UPDATES)
+    err = float(np.linalg.norm(est.state[:2] - states[t - 1][:2]))
+    launches = read_counts(counters)
+    name = f"batch_cartpole_{est.cfg_len}"
+    path_launches[name] = launches
+    seconds[name] = time.perf_counter() - t0
+    emit("batch_cartpole", window=est.cfg_len, banded=est.direct.banded,
+         updates=t - 1, update=timing, iterations=est.direct.iterations,
+         cost_history=est.direct.cost_history,
+         status=int(est.direct.status), cost=est.direct.cost,
+         qpos_error_final=err, bar=BATCH_ERR_BAR, launches=launches,
+         seconds=seconds[name], card=card)
+    assert np.isfinite(est.state).all() and err < BATCH_ERR_BAR, err
+    assert all(v == 0 for v in launches.values()), launches
+
+  # Direct at T=32 on a noisy recorded window
+  t0 = time.perf_counter()
+  zero_counts(counters)
+  states, ys, ctrls, forces = cartpole_truth(cart, DIRECT_HORIZON, SEED,
+                                             step)
+  qs = states[:, :2]
+  noisy = qs + DIRECT_NOISE * np.random.default_rng(SEED).standard_normal(
+      qs.shape)
+  direct = Direct(cart, DIRECT_HORIZON)
+  assert direct.banded
+  for k in range(DIRECT_HORIZON):
+    direct.set_data(k, qpos=noisy[k], sensor=ys[k], force=forces[k])
+  direct.set_weights(sensor=1e4, force=1.0)
+  direct.optimize()                       # captured here, then replayed
+  seconds["direct_capture"] = time.perf_counter() - t0
+  timing = timed_updates(direct.optimize, DIRECT_REPS, DEVICE_UPDATES)
+  q_err = float(np.linalg.norm(direct.qpos_optimized - qs))
+  q_err0 = float(np.linalg.norm(noisy - qs))
+  launches = read_counts(counters)
+  path_launches["direct_cartpole"] = launches
+  seconds["direct_cartpole"] = time.perf_counter() - t0
+  emit("direct_cartpole", T=DIRECT_HORIZON, banded=True, optimize=timing,
+       iterations=direct.iterations, cost_history=direct.cost_history,
+       status=int(direct.status),
+       status_name=direct.status.name, cost_initial=direct.cost_initial,
+       cost=direct.cost, qpos_error=q_err, qpos_error_initial=q_err0,
+       launches=launches, card=card)
+  assert direct.cost < direct.cost_initial, (direct.cost,
+                                             direct.cost_initial)
+  assert len(direct.cost_history) == direct.iterations + 1, \
+      direct.cost_history
+  assert q_err < 0.5 * q_err0, (q_err, q_err0)
+  emit("estimator_paths", seconds=time.perf_counter() - t_phase,
+       seconds_by_case=seconds, card=card)
+  return entries
+
+
 def contact_gradient_paths(counters, path_launches, card, device,
                            built=None):
   """Phase 11: the Gradient planner on Swimmer (graph-replayed forward and
@@ -2458,6 +2894,15 @@ def main():
     print(card, flush=True)
     print(json.dumps({"only": "agent_paths", "ok": True}), flush=True)
     return 0
+  if sys.argv[1:] == ["--only", "estimator_paths"]:
+    # phase 12 alone, its kernels built at first use
+    entries = estimator_paths(
+        dict(rollout=step_lane, riccati=riccati_lane, scoring=scoring,
+             cholesky=cholesky), {}, card, device)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"only": "estimator_paths", "ok": True}), flush=True)
+    return 0
   if sys.argv[1:] == ["--only", "contact_gradient_paths"]:
     # phase 11 alone, its kernels built at first use
     entries = contact_gradient_paths(
@@ -2469,6 +2914,7 @@ def main():
           flush=True)
     return 0
 
+  phase_mark('build')
   # ---- 2. build: every specialisation, all nvcc processes side by side --
   quad = registry.get_task("Quadruped Flat", device=device)
   cart = registry.get_task("Cartpole", device=device)
@@ -2569,6 +3015,7 @@ def main():
                 for (name, rt), k in riccati.items()},
        chol_solve_lanes={n: cholesky.layout(n) for n in chol_ns})
 
+  phase_mark('3_kernels')
   # ---- 3. kernels vs their plain versions, on the card ----
   # (a) Cartpole, recorded states
   k_c = 256
@@ -3077,6 +3524,7 @@ def main():
   emit("kernels", case="chol_solve_lanes", cases=chol_rows, tol=TOL_CHOL,
        card=card)
 
+  phase_mark('4_main_path')
   # ---- 4. main path: the planner a user builds, on the card ----
   config = sampling.SamplingConfig(
       num_trajectory=K_MAIN, num_spline_points=SPLINE_POINTS,
@@ -3122,6 +3570,7 @@ def main():
        best_last=best[-1], diverged_last=diverged[-1],
        diverged_per_iteration=diverged, card=card)
 
+  phase_mark('5_ilqg_path')
   # ---- 5. iLQG path: Swimmer at full width, on the card ----
   planner = ilqg.ILQGPlanner(swim, ilqg_config, device=device)
   assert planner.routes == dict(line_search="kernel", backward="kernel"), \
@@ -3244,6 +3693,7 @@ def main():
   assert np.allclose([float(i["best_return"]) for i in checked_infos],
                      best[:ILQG_CHECKED_ITERATIONS], rtol=1e-5)
 
+  phase_mark('6_sampling_family')
   # ---- 6. the rest of the sampling family, each on its own path ----
   counters = dict(rollout=step_lane, riccati=riccati_lane, scoring=scoring,
                   cholesky=cholesky)
@@ -3522,21 +3972,31 @@ def main():
   for i in range(1, CARTPOLE_ITERATIONS):
     assert nominal[i] <= nominal[i - 1] * (1 + 1e-6), (i, nominal)
 
+  phase_mark('7_ground_site_aux')
   # ---- 7. ground contacts, site transmission, per-step aux rows ----
   slice_e_entries = ground_site_aux(e_tasks, kernels, counters, card, device)
 
+  phase_mark('8_body_pairs')
   # ---- 8. body-body contact pairs ----
   slice_f_entries = body_pairs(f_tasks, kernels, f_models, counters, card,
                                device)
 
+  phase_mark('10_agent_paths')
   # ---- 10. the agent loop ----
   agent_entries = agent_paths(counters, path_launches, card, device,
                               main_ms=iter_ms)
 
+  phase_mark('11_contact_gradient_paths')
   # ---- 11. pipeline contacts and the Gradient planner ----
   phase11_entries = contact_gradient_paths(counters, path_launches, card,
                                            device, built=walker_built)
 
+  phase_mark('12_estimator_paths')
+  # ---- 12. the estimators and the Direct optimizer ----
+  phase12_entries = estimator_paths(counters, path_launches, card, device)
+
+  phase_mark(None)
+  emit("timing", seconds_by_phase=PHASE_SECONDS, card=card)
   # ---- 9. summary lines ----
   csrc = "mujoco_mpc_tpu_torch/ops/csrc/"
   print(json.dumps({"kernels": [{
@@ -3624,7 +4084,7 @@ def main():
       "device_ms": chol_main["device_ms"],
       "layout": chol_main["layout"],
   }] + slice_e_entries + slice_f_entries + agent_entries +
-      phase11_entries}), flush=True)
+      phase11_entries + phase12_entries}), flush=True)
   print(card, flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

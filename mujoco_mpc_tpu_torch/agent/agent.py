@@ -4,7 +4,7 @@ The Agent couples the active planner with the task, exposes name-based
 setters for cost weights, task parameters and modes, runs one planner
 iteration from the current state (`plan_iteration`), and steps the
 simulation (`step_env`; on the card one CUDA graph of the pipeline step,
-`StepGraph`). `run` is the synchronous loop of the reference's
+`rollout.StepGraph`). `run` is the synchronous loop of the reference's
 testspeed benchmark (plan every N physics steps); `agent/runner.py` is the
 asynchronous plan thread with a lock-free action read path.
 
@@ -15,16 +15,19 @@ for "Sampling"; every other name builds its own planner
 kernels. Construction errors propagate: nothing falls back to another
 planner. `routes` says which planner and kernels were taken, and why.
 
-Only the "Ground Truth" estimator exists here (the filters are ROADMAP
-queue 1 item 6). `step_env` steps the simulation model on the pipeline
-physics (joint limits, pyramidal primitive contacts): a task whose
-simulation model needs more (elliptic cones, height fields, ...) builds
-and plans, and `step_env` raises naming what is missing.
+The estimator is "Ground Truth" (the planner sees the simulation's state)
+or a filter, "Kalman", "Unscented" or "Batch" (estimators/): `step_env`
+then feeds it the sensor reading after each step, with Gaussian noise of
+`sensor_noise` from a numpy generator the Agent owns, and the planner
+plans from the filter's state (`plan_data`). On the card each filter
+update is one CUDA graph. `step_env` steps the simulation model on the
+pipeline physics (joint limits, pyramidal primitive contacts): a task
+whose simulation model needs more (elliptic cones, height fields, ...)
+builds and plans, and `step_env` raises naming what is missing.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import inspect
 import logging
 import time as time_lib
@@ -35,9 +38,9 @@ import torch
 
 from mujoco_mpc_tpu_torch import rollout as rollout_lib
 from mujoco_mpc_tpu_torch import spline as spline_lib
+from mujoco_mpc_tpu_torch.estimators import base as estimator_base
 from mujoco_mpc_tpu_torch.ops import sampling_lane, step_lane
 from mujoco_mpc_tpu_torch.physics import forward as F
-from mujoco_mpc_tpu_torch.physics.model import Data
 from mujoco_mpc_tpu_torch.planners import base as planner_base
 
 PLANNER_NAMES = planner_base.PLANNER_NAMES
@@ -69,62 +72,15 @@ def lane_eligibility(task, device) -> tuple:
   return True, "eligible"
 
 
-class StepGraph:
-  """`physics.forward.step(m, d)` captured once as a CUDA graph and
-  replayed for each step (a `rollout.GraphedBody`).
-
-  Eagerly one step of the pipeline physics is thousands of small device
-  operations (Cartpole's RK4 step 13.7k, Swimmer's Euler step 4.8k: the
-  fixed Newton iterations of the limit rows run whether a row is active or
-  not), each a separate launch from the host. The graph replays them with
-  one launch. The state fields are copied into the graph's input buffers,
-  and every output field is copied out of its buffers, so the Data a step
-  returns is the caller's to keep. Captured on the first call, for the
-  shapes of that Data."""
-
-  def __init__(self, m):
-    self.m = m
-    self.body = None
-
-  def _step(self):
-    self.out = F.step(self.m, self.d_in)
-
-  def __call__(self, d):
-    first = self.body is None
-    if first:
-      self.inputs = {f: getattr(d, f).clone()
-                     for f in rollout_lib.CARRY_FIELDS}
-      self.d_in = Data(**self.inputs)
-      self.body = rollout_lib.GraphedBody(self._step, d.qpos.device)
-    for f, buf in self.inputs.items():
-      buf.copy_(getattr(d, f))
-    self.body()
-    if first:
-      # the first call ran the step and captured it, and the capture left
-      # its output buffers unwritten: the step is a pure function of the
-      # input buffers, so a replay fills them
-      self.body()
-    return _copy_out(self.out)
-
-
-def _copy_out(record):
-  """A copy of a Data (or of its Contact) whose tensors are the caller's
-  to keep, not the graph's output buffers."""
-  return type(record)(**{
-      f.name: _copy_out(v) if dataclasses.is_dataclass(v)
-      else v.clone() if isinstance(v, torch.Tensor) else v
-      for f in dataclasses.fields(record)
-      for v in [getattr(record, f.name)]})
-
-
 def _action_takes_state(planner) -> bool:
   return "state" in inspect.signature(planner.action).parameters
 
 
 class Agent:
   """Plan/act orchestration for one task on `device` (default: the
-  task's). `seed` seeds the planner's torch.Generator and, through
-  seed + 1, the numpy generator of the task's host transition."""
+  task's). `seed` seeds the planner's torch.Generator, through seed + 1
+  the numpy generator of the task's host transition, and through seed + 2
+  the numpy generator of the sensor noise fed to a filter."""
 
   def __init__(self, task, planner: Optional[str] = None, seed: int = 0,
                estimator: Optional[str] = None, sensor_noise: float = 0.0,
@@ -137,6 +93,7 @@ class Agent:
         int(task.config("estimator", 0))]
     self._check_estimator(self.estimator_name)
     self.sensor_noise = float(sensor_noise)
+    self.noise_rng = np.random.default_rng(seed + 2)
     name = planner or PLANNER_NAMES[int(task.config("agent_planner", 0))]
     self.planner_name = name
     self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -144,25 +101,42 @@ class Agent:
     self.data = task.make_data()
     self._previous_policy = None
     # the simulation step: a CUDA graph on the card, eager on the CPU
-    self._step = (StepGraph(self.m) if self.device.type == "cuda"
+    self._step = (rollout_lib.StepGraph(self.m)
+                  if self.device.type == "cuda"
                   else lambda d: F.step(self.m, d))
+    self.estimator = self._make_estimator(self.estimator_name)
     self._build_planner()
 
   # -- planner and estimator choice ------------------------------------------
 
   @staticmethod
   def _check_estimator(name):
+    if name not in (None, "GroundTruth") and name not in ESTIMATOR_NAMES:
+      raise ValueError(
+          f"unknown estimator {name!r}; known: {ESTIMATOR_NAMES}")
+
+  def _make_estimator(self, name):
+    """None for "Ground Truth" (plan from the simulation's state), else the
+    filter on the agent's device."""
     if name in (None, "Ground Truth", "GroundTruth"):
-      return
-    if name in ESTIMATOR_NAMES:
-      raise NotImplementedError(
-          f"estimator {name!r} is not ported yet (ROADMAP queue 1 item 6); "
-          "only 'Ground Truth' runs")
-    raise ValueError(f"unknown estimator {name!r}; known: {ESTIMATOR_NAMES}")
+      return None
+    if name == "Kalman":
+      from mujoco_mpc_tpu_torch.estimators.kalman import Kalman
+      est = Kalman(self.task, device=self.device)
+    elif name == "Unscented":
+      from mujoco_mpc_tpu_torch.estimators.unscented import Unscented
+      est = Unscented(self.task, device=self.device)
+    else:
+      from mujoco_mpc_tpu_torch.estimators.batch import Batch
+      est = Batch(self.task, device=self.device)
+    self._sensor_fn = est.sensor_fn
+    self._upload = estimator_base.HostUpload(self.device)
+    return est
 
   def set_estimator(self, name: str):
     self._check_estimator(name)
     self.estimator_name = name
+    self.estimator = self._make_estimator(name)
 
   def _build_planner(self):
     eligible, reason = lane_eligibility(self.task, self.device)
@@ -187,14 +161,22 @@ class Agent:
   # -- control loop ----------------------------------------------------------
 
   def plan_data(self):
-    """The Data the planner sees: the true simulation state."""
-    return self.data
+    """The Data the planner sees: the filter's state when there is one
+    (the reference's SetState from its estimator loop), else the true
+    state."""
+    if self.estimator is None:
+      return self.data
+    return rollout_lib.set_state(self.m, self.data,
+                                 self.estimator.state_tensor)
 
   def reset(self):
-    """Fresh data and a fresh planner (its nominal policy from scratch)."""
+    """Fresh data, a fresh planner (its nominal policy from scratch) and
+    the filter reset."""
     self.data = self.task.make_data()
     self._previous_policy = None
     self._build_planner()
+    if self.estimator is not None:
+      self.estimator.reset()
 
   def plan_iteration(self, noise=None, u=None):
     """One planner iteration from the current state. The agent's generator
@@ -247,6 +229,20 @@ class Agent:
       u = torch.as_tensor(action, dtype=torch.float32).to(self.device)
     self.data = self._step(self.data.replace(ctrl=u))
     self.data = self.task.transition(self.data, self.rng)
+    if self.estimator is not None:
+      self._feed_estimator(u)
+
+  def _feed_estimator(self, u):
+    """The filter's step (`Estimator.step`) from the sensor reading after
+    the simulation step (on the stepped Data, as the JAX agent reads it),
+    plus the agent's noise: the reading is taken after the step, so a
+    filter predicts t -> t+1 under u and then corrects with it (the JAX
+    agent's order)."""
+    y = self._sensor_fn(self.m, self.data)
+    if self.sensor_noise > 0.0:
+      y = y + self._upload(self.noise_rng.normal(
+          scale=self.sensor_noise, size=tuple(y.shape)))
+    self.estimator.step(u, y)
 
   def run(self, total_time: float, steps_per_plan: int = 4,
           pipelined_plan: bool = False):

@@ -25,9 +25,22 @@ _CP_ARRAYS = ("con_condim", "con_friction", "con_solref", "con_solimp",
               "con_includemargin")
 
 
-def model_fields(m) -> dict:
+def sensor_fields(mjm) -> dict:
+  """The SensorTable fields of a compiled model, read by attribute from an
+  object with MjModel's sensor_* and site_* arrays."""
+  return dict(type=np.asarray(mjm.sensor_type, np.int64),
+              objtype=np.asarray(mjm.sensor_objtype, np.int64),
+              objid=np.asarray(mjm.sensor_objid, np.int64),
+              dim=np.asarray(mjm.sensor_dim, np.int64),
+              adr=np.asarray(mjm.sensor_adr, np.int64),
+              site_type=np.asarray(mjm.site_type, np.int64),
+              site_size=np.asarray(mjm.site_size, np.float64).reshape(-1, 3))
+
+
+def model_fields(m, mjm=None) -> dict:
   """Dictionary of numpy values for every field the port's Model keeps,
-  read by attribute from a model-like object."""
+  read by attribute from a model-like object; the sensor table from
+  `mjm` (an object with MjModel's sensor and site arrays), or none."""
   out = {k: int(getattr(m, k)) for k in model_lib.MODEL_SIZES}
   for k in model_lib.MODEL_TABLES:
     out[k] = np.asarray(getattr(m, k))
@@ -52,6 +65,7 @@ def model_fields(m) -> dict:
       out["collision_pairs"][k] = (
           np.zeros((0,), np.float32) if v is None else np.asarray(v))
   out["names"] = {k: list(v) for k, v in (m.names or {}).items()}
+  out["sensors"] = None if mjm is None else sensor_fields(mjm)
   return out
 
 

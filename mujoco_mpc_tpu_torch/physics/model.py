@@ -100,6 +100,32 @@ class CollisionPairs:
   con_geom2: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class SensorTable:
+  """The model's sensors as host tables (MjModel's sensor_* arrays, one
+  entry a sensor in sensordata order), with what the sensor evaluation
+  reads that the Model does not otherwise keep: each site's geom type and
+  size (the touch sensor's zone)."""
+  type: np.ndarray      # (nsensor,) mjtSensor
+  objtype: np.ndarray   # (nsensor,) mjtObj
+  objid: np.ndarray     # (nsensor,)
+  dim: np.ndarray       # (nsensor,)
+  adr: np.ndarray       # (nsensor,) first entry in sensordata
+  site_type: np.ndarray   # (nsite,) mjtGeom
+  site_size: np.ndarray   # (nsite, 3) float64
+
+  FIELDS = ("type", "objtype", "objid", "dim", "adr", "site_type",
+            "site_size")
+
+  @property
+  def nsensor(self) -> int:
+    return len(self.type)
+
+  @classmethod
+  def from_numpy(cls, fields: dict) -> "SensorTable":
+    return cls(**{k: np.asarray(fields[k]) for k in cls.FIELDS})
+
+
 def contact_geoms(groups) -> tuple:
   """(con_geom1, con_geom2) of a group list: the JAX package's
   `make_collision_pairs` lists each pair's candidate contacts together,
@@ -121,6 +147,7 @@ class Option:
   density: torch.Tensor
   viscosity: torch.Tensor
   impratio: torch.Tensor
+  magnetic: torch.Tensor        # (3,) global magnetic flux (magnetometer)
   cone: int = CONE_PYRAMIDAL
   iterations: int = 6
   ls_iterations: int = 4
@@ -136,7 +163,7 @@ class Option:
 
 
 OPTION_TENSORS = ("timestep", "gravity", "wind", "density", "viscosity",
-                  "impratio")
+                  "impratio", "magnetic")
 OPTION_STATIC = ("cone", "iterations", "ls_iterations", "integrator",
                  "noslip_iterations", "disableflags")
 
@@ -383,6 +410,9 @@ class Model:
   # two host booleans `has_damping` / `has_frictionloss`, and the candidate
   # contacts' constants (`_contact_tables`)
   dev: Any = None
+  # the sensor table (physics/sensors.py make_sensor_fn); None for a
+  # record exported without one
+  sensors: Optional[SensorTable] = None
   # how the pipeline physics solves its SPD systems (physics/smooth.py
   # spd_solve): "library" (the library Cholesky, differentiable: the
   # derivative sweep) or "kernel" (the batched Cholesky kernel
@@ -397,8 +427,9 @@ class Model:
     """Build from a dictionary of numpy values keyed by field name, with
     `opt` a sub-dictionary of Option fields, `collision_pairs` a
     sub-dictionary (`ncon`, `con_*`, `groups`: list of {types, geom1,
-    geom2, ncon_per_pair}) or None, and `names` a dictionary of name
-    lists. Raises when `device` is unavailable."""
+    geom2, ncon_per_pair}) or None, `names` a dictionary of name
+    lists and `sensors` a dictionary of the SensorTable fields or None.
+    Raises when `device` is unavailable."""
     def dev(x):
       return torch.as_tensor(np.array(x, dtype=np.float32)).to(device)
 
@@ -428,8 +459,10 @@ class Model:
     names = {k: list(v) for k, v in (fields.get("names") or {}).items()}
     tables = _device_tables(kw, fields, dev, device)
     tables.update(_contact_tables(kw, fields, pairs, dev, device))
+    sensors = fields.get("sensors")
     return cls(opt=opt, collision_pairs=pairs, names=names, dev=tables,
-               **kw)
+               sensors=None if sensors is None
+               else SensorTable.from_numpy(sensors), **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,6 +29,7 @@ passes (planners/gradient.py) are built on the same pieces
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -196,9 +197,86 @@ class GraphedBody:
       self.body()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-      self.body()
+    # no garbage collection during the capture: a collected CUDA graph (of
+    # an object no longer used) resets itself, which a capture in progress
+    # does not permit (it invalidates the capture)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+      with torch.cuda.graph(graph):
+        self.body()
+    finally:
+      if collecting:
+        gc.enable()
     self.graph = graph
+
+
+def copy_out(out):
+  """A copy of fn's output (tensors, in tuples and records such as Data)
+  that is the caller's to keep, not a graph's output buffers."""
+  if isinstance(out, torch.Tensor):
+    return out.clone()
+  if isinstance(out, (tuple, list)):
+    return type(out)(copy_out(v) for v in out)
+  if dataclasses.is_dataclass(out):
+    return type(out)(**{f.name: copy_out(getattr(out, f.name))
+                        for f in dataclasses.fields(out)})
+  return out
+
+
+class GraphedFn:
+  """`fn(*tensors)` over static buffers, through a `GraphedBody`: a CUDA
+  graph on a CUDA device (captured at the first call, for that call's
+  shapes), the function itself on the CPU. Each call copies its arguments
+  into the input buffers, replays, and returns a copy of the output
+  buffers (`copy_out`: tensors, tuples, records). `fn` must be a pure
+  function of its arguments that makes no host synchronisation."""
+
+  def __init__(self, fn: Callable, device):
+    self.fn = fn
+    self.cuda = torch.device(device).type == "cuda"
+    self.body = None
+
+  def _run(self):
+    self.outputs = self.fn(*self.inputs)
+
+  def __call__(self, *args):
+    if not self.cuda:
+      return self.fn(*args)
+    first = self.body is None
+    if first:
+      self.inputs = [a.clone() for a in args]
+      self.body = GraphedBody(self._run, self.inputs[0].device)
+    for buf, a in zip(self.inputs, args):
+      buf.copy_(a)
+    self.body()
+    if first:
+      # the capture left the output buffers unwritten: a replay fills them
+      self.body()
+    return copy_out(self.outputs)
+
+
+class StepGraph:
+  """`physics.forward.step(m, d)` captured once as a CUDA graph and
+  replayed for each step (a `GraphedFn` of the step over the carry
+  fields): the agent's simulation step and the ground-truth estimator's.
+
+  Eagerly one step of the pipeline physics is thousands of small device
+  operations (Cartpole's RK4 step 13.7k, Swimmer's Euler step 4.8k: the
+  fixed Newton iterations of the limit rows run whether a row is active or
+  not), each a separate launch from the host. The graph replays them with
+  one launch. The Data a step returns is a copy, the caller's to keep.
+  Captured on the first call, for the shapes of that Data."""
+
+  def __init__(self, m: Model):
+    self.m = m
+    self.graph = GraphedFn(self._step, m.qpos0.device)
+
+  def _step(self, *state):
+    return F.step(self.m, Data(**dict(zip(CARRY_FIELDS, state))))
+
+  def __call__(self, d: Data) -> Data:
+    return self.graph(*(getattr(d, f) for f in CARRY_FIELDS))
 
 
 def spline_step(m: Model, residual_fn_with_params: Callable, interp: int):

@@ -71,8 +71,8 @@ def build_record(name: str) -> dict:
                     if mjm.numeric(i).name.startswith("residual_")]
   return convert.task_record(
       name=name,
-      model=convert.model_fields(task.model),
-      plan_model=convert.model_fields(task.plan_model),
+      model=convert.model_fields(task.model, mjm),
+      plan_model=convert.model_fields(task.plan_model, mjm),
       cost_spec=convert.cost_spec_fields(jax_spec.parse_cost_spec(mjm)),
       residual_params=np.asarray(jax_spec.parse_residual_params(mjm)),
       numerics=numerics, keyframes=keyframes, texts=_text_items(mjm),

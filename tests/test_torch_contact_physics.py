@@ -24,7 +24,8 @@ from mujoco_mpc_tpu_torch import convert
 from mujoco_mpc_tpu_torch.agent import agent as tagent
 from mujoco_mpc_tpu_torch.physics import forward as TF
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
-from tests.torch_port_helpers import models_from_xml, pressed_state, to_np
+from tests.torch_port_helpers import (models_from_xml, once_a_session,
+                                      pressed_state, to_np)
 
 TOL_QPOS, TOL_QVEL = 2e-4, 2e-3
 ROWS = ("efc_J", "efc_pos", "efc_gate", "efc_diag", "efc_D", "efc_aref")
@@ -42,83 +43,133 @@ def _jax_data(jt, qpos, qvel, ctrl):
                                 ctrl=jnp.asarray(ctrl))
 
 
-def _compare_forward(jm, pm, jt, qpos, qvel, ctrl):
-  want = jax.jit(lambda d: JF.forward(jm, d))(_jax_data(jt, qpos, qvel, ctrl))
+CONTACT_FLOAT = ("dist", "pos", "frame", "friction", "force")
+CONTACT_INT = ("geom1_id", "geom2_id", "body1", "body2", "dim")
+TOP_K = 6
+
+
+def _forward_cases(pt):
+  """(name, max_contact_points or None, (qpos, qvel, ctrl)) of the forward
+  comparisons: two pressed poses, and the top-k pose."""
+  return [(f"seed{seed}", None,
+           pressed_state(pt, seed, depth=0.006, qvel_scale=0.05))
+          for seed in (1, 2)] + [
+              ("top_k", TOP_K, pressed_state(pt, 5, qvel_scale=0.05))]
+
+
+def _jax_forwards(jt, pt):
+  """JAX `forward` at every case, one jitted function a model (the plan
+  model, and the plan model keeping TOP_K contacts): the fields compared,
+  as numpy arrays keyed "<case>/<field>"."""
+  out = {}
+  fns = {}
+  for name, k, (qpos, qvel, ctrl) in _forward_cases(pt):
+    if k not in fns:
+      jm = jt.plan_model
+      if k is not None:
+        jm = jm.replace(opt=jm.opt.replace(max_contact_points=k))
+      fns[k] = jax.jit(lambda d, jm=jm: JF.forward(jm, d))
+    want = fns[k](_jax_data(jt, qpos, qvel, ctrl))
+    for f in ROWS + ("efc_force", "qfrc_constraint", "qacc"):
+      out[f"{name}/{f}"] = np.asarray(getattr(want, f))
+    for f in CONTACT_FLOAT + CONTACT_INT:
+      out[f"{name}/contact.{f}"] = np.asarray(getattr(want.contact, f))
+  return out
+
+
+def _compare_forward(tmp_path_factory, jt, pt, case):
+  """The port's forward against JAX's at one case of `_forward_cases`; the
+  JAX forwards are computed once a session."""
+  jax_out = once_a_session(tmp_path_factory, "contact_physics_forward",
+                           lambda: _jax_forwards(jt, pt))
+  (_, k, (qpos, qvel, ctrl)), = [c for c in _forward_cases(pt)
+                                 if c[0] == case]
+  pm = pt.plan_model
+  if k is not None:
+    pm = pm.replace(opt=pm.opt.replace(max_contact_points=k))
   got = TF.forward(pm, convert.data_from_numpy(pm, qpos=qpos, qvel=qvel,
                                                ctrl=ctrl))
   for f in ROWS:
-    w = np.asarray(getattr(want, f))
+    w = jax_out[f"{case}/{f}"]
     np.testing.assert_allclose(to_np(getattr(got, f)), w, rtol=1e-4,
                                atol=1e-4 * max(1.0, np.abs(w).max()),
                                err_msg=f)
   np.testing.assert_allclose(to_np(got.efc_eq), 0.0)
   for f in ("efc_force", "qfrc_constraint", "qacc"):
-    w = np.asarray(getattr(want, f))
+    w = jax_out[f"{case}/{f}"]
     np.testing.assert_allclose(to_np(getattr(got, f)), w, rtol=2e-3,
                                atol=2e-3 * max(1.0, np.abs(w).max()),
                                err_msg=f)
-  for f in ("dist", "pos", "frame", "friction", "force"):
-    w = np.asarray(getattr(want.contact, f))
+  for f in CONTACT_FLOAT:
+    w = jax_out[f"{case}/contact.{f}"]
     np.testing.assert_allclose(to_np(getattr(got.contact, f)), w, rtol=2e-3,
                                atol=2e-3 * max(1.0, np.abs(w).max()),
                                err_msg=f"contact.{f}")
-  for f in ("geom1_id", "geom2_id", "body1", "body2", "dim"):
+  for f in CONTACT_INT:
     np.testing.assert_array_equal(to_np(getattr(got.contact, f)),
-                                  np.asarray(getattr(want.contact, f)))
-  return want, got
+                                  jax_out[f"{case}/contact.{f}"])
+  return got
 
 
 @pytest.mark.parametrize("seed", [1, 2])
-def test_walker_contact_rows_match_jax(walker, seed):
+def test_walker_contact_rows_match_jax(walker, seed, tmp_path_factory):
   jt, pt = walker
-  jm, pm = jt.plan_model, pt.plan_model
+  pm = pt.plan_model
   assert (pm.nq, pm.nv, pm.nu, pm.collision_pairs.ncon) == (9, 9, 6, 26)
-  want, got = _compare_forward(jm, pm, jt, *pressed_state(
-      pt, seed, depth=0.006, qvel_scale=0.05))
+  got = _compare_forward(tmp_path_factory, jt, pt, f"seed{seed}")
   assert got.efc_J.shape == (12 + 4 * 26, 9)   # limits, then contacts
   active = to_np(got.efc_gate) < 0
   assert active[12:].sum() >= 4 and to_np(got.contact.force)[:, 0].max() > 0
 
 
-def test_top_k_keeps_the_deepest_contacts(walker):
+def test_top_k_keeps_the_deepest_contacts(walker, tmp_path_factory):
   """6 of the 26 candidates kept: the deepest, sorted by depth. Walker's
   symmetric legs give some pairs equal gaps whatever the joint angles
   (two implementations may order those differently), so the pose is one
   whose 7 smallest gaps are all distinct."""
   jt, pt = walker
-  k = 6
-  jm = jt.plan_model.replace(opt=jt.plan_model.opt.replace(
-      max_contact_points=k))
-  pm = pt.plan_model.replace(opt=pt.plan_model.opt.replace(
-      max_contact_points=k))
+  k = TOP_K
   qpos, qvel, ctrl = pressed_state(pt, 5, qvel_scale=0.05)
   full = TF.forward(pt.plan_model, convert.data_from_numpy(
       pt.plan_model, qpos=qpos, qvel=qvel, ctrl=ctrl))
   smallest = np.sort(to_np(full.contact.dist))[:k + 1]
   assert len(np.unique(smallest)) == k + 1, smallest
-  want, got = _compare_forward(jm, pm, jt, qpos, qvel, ctrl)
+  got = _compare_forward(tmp_path_factory, jt, pt, "top_k")
   assert got.efc_J.shape == (12 + 4 * k, 9)
   np.testing.assert_array_equal(to_np(got.contact.dist), smallest[:k])
 
 
-def test_walker_steps_match_jax(walker):
+def _jax_steps(jt, qpos, qvel, ctrl, n):
+  """The JAX plan model's states over n steps from (qpos, qvel) under
+  ctrl: qpos (n + 1, nq), qvel (n + 1, nv)."""
+  jm = jt.plan_model
+  jd = _jax_data(jt, qpos, qvel, ctrl)
+  step = jax.jit(lambda d: JF.step(jm, d))
+  qs, vs = [np.asarray(jd.qpos)], [np.asarray(jd.qvel)]
+  for _ in range(n):
+    jd = step(jd)
+    qs.append(np.asarray(jd.qpos))
+    vs.append(np.asarray(jd.qvel))
+  return dict(qpos=np.array(qs), qvel=np.array(vs))
+
+
+def test_walker_steps_match_jax(walker, tmp_path_factory):
   jt, pt = walker
-  jm, pm = jt.plan_model, pt.plan_model
+  pm = pt.plan_model
   qpos, qvel, ctrl = pressed_state(pt, 3, depth=0.01, qvel_scale=0.05)
   ctrl = 0.1 * ctrl          # full torques lift the foot off at once
   first = TF.forward(pm, convert.data_from_numpy(pm, qpos=qpos, qvel=qvel,
                                                  ctrl=ctrl))
   assert to_np(first.contact.force)[:, 0].max() > 0   # the floor pushes
-  jd = _jax_data(jt, qpos, qvel, ctrl)
-  step = jax.jit(lambda d: JF.step(jm, d))
+  want = once_a_session(tmp_path_factory, "contact_physics_steps",
+                        lambda: _jax_steps(jt, qpos, qvel, ctrl, 4))
   for t in range(4):
-    pd = convert.data_from_numpy(pm, qpos=np.asarray(jd.qpos),
-                                 qvel=np.asarray(jd.qvel), ctrl=ctrl)
-    jd = step(jd)
+    pd = convert.data_from_numpy(pm, qpos=want["qpos"][t],
+                                 qvel=want["qvel"][t], ctrl=ctrl)
     pd = TF.step(pm, pd)
-    np.testing.assert_allclose(to_np(pd.qpos), np.asarray(jd.qpos),
+    np.testing.assert_allclose(to_np(pd.qpos), want["qpos"][t + 1],
                                atol=TOL_QPOS, err_msg=f"qpos t={t}")
-    np.testing.assert_allclose(to_np(pd.qvel), np.asarray(jd.qvel),
+    np.testing.assert_allclose(to_np(pd.qvel), want["qvel"][t + 1],
                                atol=TOL_QVEL, err_msg=f"qvel t={t}")
 
 

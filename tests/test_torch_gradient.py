@@ -33,7 +33,7 @@ from mujoco_mpc_tpu_torch import spline as TS
 from mujoco_mpc_tpu_torch.planners import base as tbase
 from mujoco_mpc_tpu_torch.planners import gradient as TG
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
-from tests.torch_port_helpers import to_np, tt
+from tests.torch_port_helpers import once_a_session, to_np, tt
 
 CASES = {"Cartpole": 11, "Swimmer": 6}
 NODES = 3
@@ -61,11 +61,9 @@ def _jax_setup(name, horizon, qpos, qvel):
   return jt, cfg, d0, policy
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_value_and_gradient_match_jax(name):
-  horizon = CASES[name]
-  pt = tregistry.get_task(name, device="cpu")
-  qpos, qvel, values = _start(name, pt, seed=len(name))
+def _jax_value_and_grad(name, horizon, qpos, qvel, values):
+  """The JAX rollout's total return and its gradient with respect to the
+  resampled spline values, with that spline's t0, dt and values."""
   jt, jcfg, jd0, jpol = _jax_setup(name, horizon, qpos, qvel)
   jm = jt.plan_model
   jpol = JS.resample(jpol.replace(values=jnp.asarray(values)), jd0.time,
@@ -78,15 +76,31 @@ def test_value_and_gradient_match_jax(name):
                       horizon).total_return
 
   jval, jgrad = jax.jit(jax.value_and_grad(total))(jpol.values)
+  return dict(val=np.asarray(jval), grad=np.asarray(jgrad),
+              t0=np.asarray(jpol.t0), dt=np.asarray(jpol.dt),
+              values=np.asarray(jpol.values), interp=np.asarray(jcfg.interp),
+              horizon=np.asarray(jcfg.horizon),
+              nodes=np.asarray(jcfg.num_spline_points))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_value_and_gradient_match_jax(name, tmp_path_factory):
+  horizon = CASES[name]
+  pt = tregistry.get_task(name, device="cpu")
+  qpos, qvel, values = _start(name, pt, seed=len(name))
+  want = once_a_session(
+      tmp_path_factory, f"gradient_value_and_grad_{name}",
+      lambda: _jax_value_and_grad(name, horizon, qpos, qvel, values))
+  jval, jgrad = want["val"], want["grad"]
 
   pm = pt.plan_model
   pd0 = convert.data_from_numpy(pm, qpos=qpos, qvel=qvel)
   cfg = TG.make_config(pt).replace(horizon=horizon,
                                    num_spline_points=NODES)
   assert (cfg.horizon, cfg.num_spline_points, cfg.interp) == (
-      jcfg.horizon, jcfg.num_spline_points, jcfg.interp)
-  ppol = convert.policy_from_numpy(np.asarray(jpol.t0), np.asarray(jpol.dt),
-                                   np.asarray(jpol.values), device="cpu")
+      int(want["horizon"]), int(want["nodes"]), int(want["interp"]))
+  ppol = convert.policy_from_numpy(want["t0"], want["dt"], want["values"],
+                                   device="cpu")
   fn = TG.ValueAndGrad(pm, pt.residual, horizon, cfg.interp)
   val, grad, failure = fn(ppol.values, ppol.t0, ppol.dt, pd0,
                           pt.residual_params, pt.cost_spec)
@@ -112,10 +126,9 @@ def test_value_and_gradient_match_jax(name):
                              rtol=1e-4)
 
 
-def test_one_iteration_matches_jax_on_cartpole():
-  name, horizon = "Cartpole", CASES["Cartpole"]
-  pt = tregistry.get_task(name, device="cpu")
-  qpos, qvel, values = _start(name, pt, seed=21)
+def _jax_one_iteration(name, horizon, qpos, qvel, values):
+  """One JAX Gradient optimize from the spline `values`: the new policy's
+  values, the info the test reads, and the start policy's t0 and dt."""
   jt, jcfg, jd0, jpol = _jax_setup(name, horizon, qpos, qvel)
   jpol = jpol.replace(values=jnp.asarray(values))
   opt = JG.make_optimize_fn(
@@ -123,6 +136,20 @@ def test_one_iteration_matches_jax_on_cartpole():
       jt.cost_spec.cost, jcfg, residual_fn_with_params=jt.residual)
   jnew, jinfo = jax.jit(opt)(None, jd0, jpol, jt.residual_params,
                              jt.cost_spec)
+  out = {key: np.asarray(jinfo[key]) for key in (
+      "nominal_return", "best_return", "grad_norm", "step", "improved")}
+  out.update(new_values=np.asarray(jnew.values), t0=np.asarray(jpol.t0),
+             dt=np.asarray(jpol.dt))
+  return out
+
+
+def test_one_iteration_matches_jax_on_cartpole(tmp_path_factory):
+  name, horizon = "Cartpole", CASES["Cartpole"]
+  pt = tregistry.get_task(name, device="cpu")
+  qpos, qvel, values = _start(name, pt, seed=21)
+  jinfo = once_a_session(
+      tmp_path_factory, "gradient_one_iteration_cartpole",
+      lambda: _jax_one_iteration(name, horizon, qpos, qvel, values))
 
   planner = tbase.make_planner(pt, "Gradient", device="cpu")
   assert isinstance(planner, TG.GradientPlanner)
@@ -132,8 +159,8 @@ def test_one_iteration_matches_jax_on_cartpole():
   assert planner.routes == dict(value_and_grad="vjp_eager",
                                 line_search="pipeline", spd_solve="kernel",
                                 scoring="kernel")
-  planner.policy = convert.policy_from_numpy(
-      np.asarray(jpol.t0), np.asarray(jpol.dt), values, device="cpu")
+  planner.policy = convert.policy_from_numpy(jinfo["t0"], jinfo["dt"],
+                                             values, device="cpu")
   pd0 = convert.data_from_numpy(pt.plan_model, qpos=qpos, qvel=qvel)
   info = planner.optimize(None, pd0)
   for key in ("nominal_return", "best_return", "grad_norm", "step"):
@@ -141,7 +168,7 @@ def test_one_iteration_matches_jax_on_cartpole():
                                rtol=1e-3, err_msg=key)
   assert bool(info["improved"]) == bool(jinfo["improved"]) is True
   np.testing.assert_allclose(to_np(planner.policy.values),
-                             np.asarray(jnew.values), atol=1e-4)
+                             jinfo["new_values"], atol=1e-4)
   # 8 candidates: clipped, log-scaled steps along one direction, their
   # returns those of the port's own rollouts
   cands, returns = info["candidates"], info["returns"]

@@ -56,7 +56,8 @@ def test_every_ported_model_field_equals_jax(name, which):
   jm = getattr(jregistry.get_task(name), which)
   pm = getattr(tregistry.get_task(name, device="cpu"), which)
   for f in dataclasses.fields(tmodel.Model):
-    if f.name in ("opt", "collision_pairs", "names", "dev", "solve_route"):
+    if f.name in ("opt", "collision_pairs", "names", "dev", "solve_route",
+                  "sensors"):
       continue
     want = np.asarray(getattr(jm, f.name))
     got = getattr(pm, f.name)
@@ -206,13 +207,16 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
   factorisation or matrix product where a kernel's arithmetic lives (ops/,
   the planners' plain versions of the kernels): the rollout's Cholesky and
   Newton, the batched Cholesky solve and the Riccati sweep's Gauss-Jordan
-  are their own. Two files are let library calls, as the JAX package
+  are their own. These files are let library calls, as the JAX package
   leaves these to its array library: physics/smooth.py factors and solves
   the pipeline's SPD systems on its differentiable route with
-  `torch.linalg.cholesky_ex` and `torch.linalg.solve_triangular`, and
+  `torch.linalg.cholesky_ex` and `torch.linalg.solve_triangular`,
   spline.py solves the spline fit's normal equations with
-  `torch.linalg.solve_ex`; every other library solve is refused there
-  too."""
+  `torch.linalg.solve_ex`, and the estimators' and the Direct optimizer's
+  dense factors and solves (the EKF's and UKF's gains and sigma points,
+  the dense Gauss-Newton system, the banded blocks, the parameter
+  border's Schur system) are the same library calls; every other library
+  solve is refused there too."""
   banned = re.compile(r"torch\.compile|import triton|cpp_extension")
   banned_solvers = re.compile(
       r"torch\.linalg|cholesky_solve|torch\.cholesky|torch\.inverse|"
@@ -222,7 +226,21 @@ def test_port_uses_no_compiler_shortcuts_or_library_solvers():
       os.path.join("physics", "smooth.py"): (re.compile(
           r"torch\.linalg\.(?:cholesky_ex|solve_triangular)\b"), 3),
       # the fit's one solve
-      "spline.py": (re.compile(r"torch\.linalg\.solve_ex\b"), 1)}
+      "spline.py": (re.compile(r"torch\.linalg\.solve_ex\b"), 1),
+      # the gain's factor and its two solves
+      os.path.join("estimators", "kalman.py"): (re.compile(
+          r"torch\.linalg\.(?:cholesky_ex|solve_triangular)\b"), 3),
+      # the sigma points' factor and the gain's
+      os.path.join("estimators", "unscented.py"): (re.compile(
+          r"torch\.linalg\.cholesky_ex\b"), 2),
+      # the dense Gauss-Newton factor
+      os.path.join("direct", "optimizer.py"): (re.compile(
+          r"torch\.linalg\.cholesky_ex\b"), 1),
+      # the block factor, its solves, the square-root back-substitutions
+      # and the border's Schur solve
+      os.path.join("direct", "banded.py"): (re.compile(
+          r"torch\.linalg\.(?:cholesky_ex|solve_triangular|solve_ex)\b"),
+          7)}
   for path in _python_files():
     if path.endswith("chip_smoke.py"):
       continue

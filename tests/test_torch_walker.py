@@ -27,7 +27,7 @@ from mujoco_mpc_tpu_torch.physics import forward as TF
 from mujoco_mpc_tpu_torch.planners import derivatives as TD
 from mujoco_mpc_tpu_torch.planners import ilqg as tilqg
 from mujoco_mpc_tpu_torch.tasks import registry as tregistry
-from tests.torch_port_helpers import pressed_state, to_np, tt
+from tests.torch_port_helpers import once_a_session, pressed_state, to_np, tt
 
 TOL_ROWS, TOL_QPOS, TOL_QVEL = 5e-4, 2e-4, 2e-3
 
@@ -38,15 +38,21 @@ def walker():
                                                           device="cpu")
 
 
-def test_pipeline_residual_matches_jax(walker):
+def test_pipeline_residual_matches_jax(walker, tmp_path_factory):
   jt, pt = walker
   jm, pm = jt.plan_model, pt.plan_model
   qpos, qvel, ctrl = pressed_state(pt, 7, qvel_scale=0.8)
   params = np.array([1.1, 0.7], np.float32)
-  jd = jt.make_data().replace(qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel),
-                              ctrl=jnp.asarray(ctrl))
-  want = jax.jit(lambda d: jt.residual(jm, JF.forward(jm, d),
-                                       jnp.asarray(params)))(jd)
+
+  def jax_residual():
+    jd = jt.make_data().replace(qpos=jnp.asarray(qpos),
+                                qvel=jnp.asarray(qvel),
+                                ctrl=jnp.asarray(ctrl))
+    return {"r": np.asarray(jax.jit(lambda d: jt.residual(
+        jm, JF.forward(jm, d), jnp.asarray(params)))(jd))}
+
+  want = once_a_session(tmp_path_factory, "walker_residual",
+                        jax_residual)["r"]
   d = TF.forward(pm, convert.data_from_numpy(pm, qpos=qpos, qvel=qvel,
                                              ctrl=ctrl))
   got = pt.residual(pm, d, tt(params))
@@ -96,7 +102,8 @@ def test_lane_residual_steps_match_jax_lane_kernel(walker):
                                  err_msg=f"qvel t={t}")
 
 
-def test_dynamics_jacobians_match_jax_at_contact_states(walker):
+def test_dynamics_jacobians_match_jax_at_contact_states(walker,
+                                                      tmp_path_factory):
   """A and B of `vmap(jacfwd)` through the contact pipeline along 5
   states pressed into the floor (active pyramidal rows)."""
   jt, pt = walker
@@ -106,9 +113,15 @@ def test_dynamics_jacobians_match_jax_at_contact_states(walker):
   s = np.stack([np.concatenate([q, v]) for q, v, _ in rows])
   u = 0.2 * np.stack([c for _, _, c in rows])
   t = (0.01 * np.arange(5)).astype(np.float32)
-  ja, jb = jax.jit(lambda s, u, t: JD.model_derivatives(
-      jm, jt.make_data(), s, u, t, skip=1))(
-          jnp.asarray(s), jnp.asarray(u), jnp.asarray(t))
+
+  def jax_jacobians():
+    a, b = jax.jit(lambda s, u, t: JD.model_derivatives(
+        jm, jt.make_data(), s, u, t, skip=1))(
+            jnp.asarray(s), jnp.asarray(u), jnp.asarray(t))
+    return dict(a=np.asarray(a), b=np.asarray(b))
+
+  want = once_a_session(tmp_path_factory, "walker_jacobians", jax_jacobians)
+  ja, jb = want["a"], want["b"]
   pa, pb = TD.model_derivatives(pm, pt.make_data(), tt(s), tt(u), tt(t),
                                 skip=1)
   assert pa.shape == (5, 18, 18) and pb.shape == (5, 18, 6)

@@ -5,6 +5,7 @@ counterpart in the port (on the CPU, i.e. the plain versions of the
 kernels); results come back as numpy arrays.
 """
 
+import contextlib
 import os
 
 import filelock
@@ -131,6 +132,59 @@ def once_a_session(tmp_path_factory, name, compute):
     return {k: f[k] for k in f.files}
 
 
+@contextlib.contextmanager
+def jax_direct_cost_histories():
+  """Within, each run of the JAX package's Direct Gauss-Newton loop (the
+  `lax.while_loop` of mujoco_mpc_tpu/direct/optimizer.py, jitted or not,
+  alone or inside the Batch estimator's update) reports its costs to the
+  host: yields a list that gets one list a run, [initial cost, the cost
+  after each iteration]. The loop is the package's own; a debug callback
+  in its body reads the cost out. Other while loops are left alone."""
+  import jax
+  from mujoco_mpc_tpu.direct import optimizer as jopt
+  real = jax.lax.while_loop
+  runs = []
+
+  def record(it, before, after):
+    if int(it) == 1:
+      runs.append([float(before)])
+    runs[-1].append(float(after))
+
+  def while_loop(cond, body, init):
+    if getattr(cond, "__module__", None) != jopt.__name__:
+      return real(cond, body, init)
+
+    def reporting(carry):
+      new = body(carry)
+      # the carry ends (cost, reg, it, status)
+      jax.debug.callback(record, new[-2], carry[-4], new[-4], ordered=True)
+      return new
+
+    return real(cond, reporting, init)
+
+  jax.lax.while_loop = while_loop
+  try:
+    yield runs
+  finally:
+    jax.lax.while_loop = real
+
+
+def assert_same_stop(port_costs, jax_costs, cost_tolerance):
+  """Two Gauss-Newton runs, each [initial cost, the cost after each
+  iteration], stop at the same iteration; or one iteration apart where the
+  run that went on changed its cost by less than `cost_tolerance` in its
+  last iteration: the stopping test (a cost change under the tolerance,
+  at float32 resolution) fired one step earlier on the other side, and
+  that step changed nothing the tolerance sees."""
+  n_port, n_jax = len(port_costs) - 1, len(jax_costs) - 1
+  if n_port == n_jax:
+    return
+  assert abs(n_port - n_jax) == 1, (port_costs, jax_costs)
+  longer = port_costs if n_port > n_jax else jax_costs
+  assert abs(longer[-1] - longer[-2]) < cost_tolerance, (port_costs,
+                                                         jax_costs)
+
+
 def to_np(x) -> np.ndarray:
   if isinstance(x, torch.Tensor):
     return x.detach().cpu().numpy()
@@ -142,12 +196,14 @@ def tt(x) -> torch.Tensor:
 
 
 def models_from_xml(xml: str):
-  """(JAX Model, port Model on the CPU, MjModel) of one MJCF string."""
+  """(JAX Model, port Model on the CPU with the sensor table, MjModel) of
+  one MJCF string."""
   import mujoco
   from mujoco_mpc_tpu.physics import model as jax_model
   mjm = mujoco.MjModel.from_xml_string(xml)
   jm = jax_model.put_model(mjm)
-  pm = convert.model_from_jax_numpy(convert.model_fields(jm), device="cpu")
+  pm = convert.model_from_jax_numpy(convert.model_fields(jm, mjm),
+                                    device="cpu")
   return jm, pm, mjm
 
 
